@@ -106,7 +106,7 @@ def floor_probe(passes: int = 2) -> dict:
         return audio_of(res) / best
 
     try:
-        from ohpipeline_tpu.codecs.opus import celt_jax
+        from ohpipeline_jax.codecs.opus import celt_jax
         streams = []
         for i in range(16):
             def b(i=i):
@@ -124,7 +124,7 @@ def floor_probe(passes: int = 2) -> dict:
         out.setdefault("errors", []).append(f"celt: {e}")
 
     try:
-        from ohpipeline_tpu.codecs.aac.serving import \
+        from ohpipeline_jax.codecs.aac.serving import \
             decode_he_streams_device
 
         def he_s(i):
@@ -144,12 +144,12 @@ def floor_probe(passes: int = 2) -> dict:
         out.setdefault("errors", []).append(f"he: {e}")
 
     try:
-        from ohpipeline_tpu.codecs.mp3.serving import \
+        from ohpipeline_jax.codecs.mp3.serving import \
             decode_mp3_streams_device
 
         def m3(i):
             def b():
-                from ohpipeline_tpu.codecs.mp3 import encoder as ENC
+                from ohpipeline_jax.codecs.mp3 import encoder as ENC
                 rng = np.random.default_rng(300 + i)
                 frames = []
                 for _ in range(int(secs * 44100 / 1152)):
@@ -171,11 +171,11 @@ def floor_probe(passes: int = 2) -> dict:
         out.setdefault("errors", []).append(f"mp3: {e}")
 
     try:
-        from ohpipeline_tpu.codecs.vorbis import vorbis_jax
+        from ohpipeline_jax.codecs.vorbis import vorbis_jax
 
         def vb(i):
             def build():
-                from ohpipeline_tpu.codecs.vorbis.encoder import \
+                from ohpipeline_jax.codecs.vorbis.encoder import \
                     StreamSpec
                 rng = np.random.default_rng(100 + i)
                 spec = StreamSpec(channels=2, sample_rate=44100,
@@ -219,12 +219,12 @@ def all_codecs_bench(passes: int = 3) -> dict:
     if not ensure_oracles():
         return {"error": "oracles unavailable"}
     secs = SECONDS
-    from ohpipeline_tpu.codecs import flac as FL
-    from ohpipeline_tpu.codecs.flac import serving as FS
-    from ohpipeline_tpu.codecs.aac import serving as AS
-    from ohpipeline_tpu.codecs.mp3.serving import decode_mp3_streams_device
-    from ohpipeline_tpu.codecs.opus import celt_jax
-    from ohpipeline_tpu.codecs.vorbis import vorbis_jax
+    from ohpipeline_jax.codecs import flac as FL
+    from ohpipeline_jax.codecs.flac import serving as FS
+    from ohpipeline_jax.codecs.aac import serving as AS
+    from ohpipeline_jax.codecs.mp3.serving import decode_mp3_streams_device
+    from ohpipeline_jax.codecs.opus import celt_jax
+    from ohpipeline_jax.codecs.vorbis import vorbis_jax
 
     def flac_streams():
         out = []
@@ -270,7 +270,7 @@ def all_codecs_bench(passes: int = 3) -> dict:
         return out
 
     def mp3_streams():
-        from ohpipeline_tpu.codecs.mp3 import encoder as ENC
+        from ohpipeline_jax.codecs.mp3 import encoder as ENC
         out = []
         for i in range(16):
             def b(i=i):
@@ -288,7 +288,7 @@ def all_codecs_bench(passes: int = 3) -> dict:
         return out
 
     def vorbis_streams():
-        from ohpipeline_tpu.codecs.vorbis.encoder import StreamSpec
+        from ohpipeline_jax.codecs.vorbis.encoder import StreamSpec
         out = []
         for i in range(16):
             def b(i=i):
@@ -380,7 +380,7 @@ def main() -> int:
                                   list(mode_args))
         return b
 
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     data = _cached("opus_silk_wb", opus_build(("1", "24000", "silk")))
     results["opus_silk_wb"] = bench_one(
         "opus_silk_wb", data, decode_opus, secs)
@@ -398,7 +398,7 @@ def main() -> int:
     # entropy on host, denorm/IMDCT/comb/deemph batched on the chip —
     # codecs/opus/celt_jax.py) -----------------------------------------
     try:
-        from ohpipeline_tpu.codecs.opus import celt_jax
+        from ohpipeline_jax.codecs.opus import celt_jax
         celt_streams = []
         for i in range(16):
             def b(i=i):
@@ -425,8 +425,8 @@ def main() -> int:
         return _oracle_encode("aac_oracle", pcm,
                               ["44100", "2", "48000", "2", "5"])
 
-    from ohpipeline_tpu.codecs.aac import CodecAacAdts
-    from ohpipeline_tpu.codecs.base import EndOfStream
+    from ohpipeline_jax.codecs.aac import CodecAacAdts
+    from ohpipeline_jax.codecs.base import EndOfStream
 
     class _Rdr:
         def __init__(self, b):
@@ -459,7 +459,7 @@ def main() -> int:
 
     # --- HE-AAC 16-stream device serving (one SBR dispatch/group) ----
     try:
-        from ohpipeline_tpu.codecs.aac.serving import \
+        from ohpipeline_jax.codecs.aac.serving import \
             decode_he_streams_device
 
         def he_s(i):
@@ -485,7 +485,7 @@ def main() -> int:
 
     # --- MP3 (own frame builder content, libmad-validated decode) ----
     def mp3_build():
-        from ohpipeline_tpu.codecs.mp3 import encoder as ENC
+        from ohpipeline_jax.codecs.mp3 import encoder as ENC
         rng = np.random.default_rng(3)
         spec = np.zeros((2, 576), np.int32)
         m = rng.random((2, 576)) < 0.25
@@ -493,7 +493,7 @@ def main() -> int:
         nfr = int(secs * 44100 / 1152)
         return ENC.build_stream([spec[0], spec[1]], nframes=nfr)
 
-    from ohpipeline_tpu.codecs.mp3 import decode_mp3
+    from ohpipeline_jax.codecs.mp3 import decode_mp3
     try:
         data = _cached("mp3", mp3_build)
         info, pcm = decode_mp3(data)
@@ -506,12 +506,12 @@ def main() -> int:
     # --- MP3 16-stream device serving (one filterbank dispatch/group,
     # int16 spectrum wire — codecs/mp3/serving.py) ---------------------
     try:
-        from ohpipeline_tpu.codecs.mp3.serving import \
+        from ohpipeline_jax.codecs.mp3.serving import \
             decode_mp3_streams_device
 
         def m3(i):
             def b():
-                from ohpipeline_tpu.codecs.mp3 import encoder as ENC
+                from ohpipeline_jax.codecs.mp3 import encoder as ENC
                 rng = np.random.default_rng(300 + i)
                 frames = []
                 for _ in range(int(secs * 44100 / 1152)):
@@ -539,7 +539,7 @@ def main() -> int:
     # --- Vorbis (own spec-valid stream builder, as the conformance
     # tests use; residual density comparable to music at ~q4) ---------
     def vorbis_build():
-        from ohpipeline_tpu.codecs.vorbis.encoder import StreamSpec
+        from ohpipeline_jax.codecs.vorbis.encoder import StreamSpec
         rng = np.random.default_rng(7)
         spec = StreamSpec(channels=2, sample_rate=44100, bs0=256,
                           bs1=1024, coupling=True)
@@ -553,7 +553,7 @@ def main() -> int:
             blocks.append((1, [(140, 120)] * 2, r))
         return spec.build(blocks)
 
-    from ohpipeline_tpu.codecs.vorbis import decode_vorbis
+    from ohpipeline_jax.codecs.vorbis import decode_vorbis
     try:
         data = _cached("vorbis", vorbis_build)
         info, pcm = decode_vorbis(data)
@@ -568,11 +568,11 @@ def main() -> int:
     # entropy on host, IMDCT/window/overlap-add batched on the chip —
     # codecs/vorbis/vorbis_jax.py) -------------------------------------
     try:
-        from ohpipeline_tpu.codecs.vorbis import vorbis_jax
+        from ohpipeline_jax.codecs.vorbis import vorbis_jax
 
         def vb(i):
             def build():
-                from ohpipeline_tpu.codecs.vorbis.encoder import StreamSpec
+                from ohpipeline_jax.codecs.vorbis.encoder import StreamSpec
                 rng = np.random.default_rng(100 + i)
                 spec = StreamSpec(channels=2, sample_rate=44100, bs0=256,
                                   bs1=1024, coupling=True)
@@ -604,7 +604,7 @@ def main() -> int:
 
     try:
         import struct
-        from ohpipeline_tpu.codecs import alac as AL
+        from ohpipeline_jax.codecs import alac as AL
         data = _cached("alac", alac_build)
 
         def decode_alac_all(raw):

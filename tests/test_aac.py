@@ -16,7 +16,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs import aac
+from ohpipeline_jax.codecs import aac
 
 ORACLE = pathlib.Path(__file__).resolve().parent.parent / ".oracle_build" / "aac_oracle"
 
@@ -137,8 +137,8 @@ def test_adts_recognition():
 
 def test_mp4_container_roundtrip(tmp_path):
     # strip ADTS headers -> raw frames -> our own M4A mux -> CodecAacMp4
-    from ohpipeline_tpu.codecs.aac import bitstream as BS
-    from ohpipeline_tpu.containers.mpeg4 import write_m4a
+    from ohpipeline_jax.codecs.aac import bitstream as BS
+    from ohpipeline_jax.containers.mpeg4 import write_m4a
     x = tone(44100, seconds=0.7)
     data = oracle_encode(x, 44100, 128000, tmp_path)
     frames = []
@@ -151,14 +151,14 @@ def test_mp4_container_roundtrip(tmp_path):
         pos += hdr.frame_bytes
     asc = bytes([0x12, 0x10])          # AAC-LC, 44.1k, stereo
     m4a = write_m4a(frames, asc, 44100, 2)
-    from ohpipeline_tpu.codecs.base import BufferReader
+    from ohpipeline_jax.codecs.base import BufferReader
     codec = aac.CodecAacMp4()
     assert codec.recognise(m4a[:65536])
     r = BufferReader(m4a)
     info = codec.stream_initialise(r)
     assert info.sample_rate == 44100 and info.num_channels == 2
     parts = []
-    from ohpipeline_tpu.codecs.base import EndOfStream
+    from ohpipeline_jax.codecs.base import EndOfStream
     while True:
         try:
             parts.append(codec.process(r).resolve())

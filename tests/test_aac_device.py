@@ -5,8 +5,8 @@ one jit)."""
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import native
-from ohpipeline_tpu.codecs import aac
+from ohpipeline_jax import native
+from ohpipeline_jax.codecs import aac
 
 pytestmark = pytest.mark.skipif(not native.have_aac_unpack(),
                                 reason="native unpacker unavailable")

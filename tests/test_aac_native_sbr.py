@@ -13,10 +13,10 @@ import os
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import native
-from ohpipeline_tpu.codecs.aac import (CodecAacAdts, bitstream as BS,
+from ohpipeline_jax import native
+from ohpipeline_jax.codecs.aac import (CodecAacAdts, bitstream as BS,
                                        frames_from_arrays)
-from ohpipeline_tpu.codecs.base import EndOfStream, StreamReader
+from ohpipeline_jax.codecs.base import EndOfStream, StreamReader
 
 ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      "assets", "dryrun_he.aac")

@@ -9,7 +9,7 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import native
+from ohpipeline_jax import native
 
 pytestmark = pytest.mark.skipif(not native.have_aac_unpack(),
                                 reason="native unpacker unavailable")
@@ -44,8 +44,8 @@ def _content(seed, seconds, rate=44100):
 
 
 def test_streams_device_matches_host():
-    from ohpipeline_tpu.codecs.aac import decode_adts
-    from ohpipeline_tpu.codecs.aac.serving import decode_aac_streams_device
+    from ohpipeline_jax.codecs.aac import decode_adts
+    from ohpipeline_jax.codecs.aac.serving import decode_aac_streams_device
     streams = [_encode(_content(i, 1.2 + 0.4 * i), 44100)
                for i in range(3)]
     refs = [decode_adts(s)[1] for s in streams]
@@ -59,8 +59,8 @@ def test_streams_device_matches_host():
 
 
 def test_single_stream_group_boundaries():
-    from ohpipeline_tpu.codecs.aac import decode_adts
-    from ohpipeline_tpu.codecs.aac.serving import decode_aac_streams_device
+    from ohpipeline_jax.codecs.aac import decode_adts
+    from ohpipeline_jax.codecs.aac.serving import decode_aac_streams_device
     data = _encode(_content(9, 0.9), 44100)
     ref = decode_adts(data)[1]
     for g in (8, 64):
@@ -87,8 +87,8 @@ def test_he_streams_device_matches_codec():
     dispatch per group) vs the single-stream codec path (itself
     conformance-bounded vs libSBRdec) across ragged stream lengths and
     a group size different from the codec's."""
-    from ohpipeline_tpu.codecs.aac import decode_adts
-    from ohpipeline_tpu.codecs.aac.serving import decode_he_streams_device
+    from ohpipeline_jax.codecs.aac import decode_adts
+    from ohpipeline_jax.codecs.aac.serving import decode_he_streams_device
     streams = [_encode_he(_content(20 + i, 1.6 + 0.5 * i), 44100)
                for i in range(3)]
     refs = [decode_adts(s)[1] for s in streams]
@@ -105,8 +105,8 @@ def test_he_streams_device_matches_codec():
 def test_clipping_content_matches_host():
     """Content with inter-sample overs (short windows + TNS + loud
     transients): both paths must saturate identically at int16."""
-    from ohpipeline_tpu.codecs.aac import decode_adts
-    from ohpipeline_tpu.codecs.aac.serving import decode_aac_streams_device
+    from ohpipeline_jax.codecs.aac import decode_adts
+    from ohpipeline_jax.codecs.aac.serving import decode_aac_streams_device
     data = _encode(_content(42, 1.0), 44100)
     ref = decode_adts(data)[1]
     out = decode_aac_streams_device([data], frames_per_group=16)[0]
@@ -114,3 +114,23 @@ def test_clipping_content_matches_host():
     assert ref.max() == 32767              # the content actually clips
     d = np.abs(out[:, :n].astype(np.float64) - ref[:, :n])
     assert d.max() <= 2.0, d.max()
+
+
+@pytest.mark.parametrize("runs", [(2, 1), (3, 1), (1, 1)])
+def test_he_streams_device_splice_matches_numpy_chain(runs):
+    """A stream that splices header-led runs of tests/assets/
+    dryrun_he.aac: each splice into the run at frame 10 leaves a gap
+    between the previous frame's last envelope border and this frame's
+    first, so the frame takes slots that no frame patched from the
+    carried tail.  The device chain must carry the unpatched buffer there,
+    as the numpy SBR chain does."""
+    import sys
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    from ohpipeline_jax.codecs.aac.serving import decode_he_streams_device
+    frames = chip_smoke.adts_frames("dryrun_he.aac")
+    data = b"".join(f for r in runs for f in frames[10 * r:10 * r + 10])
+    got = decode_he_streams_device([data], frames_per_group=8)[0]
+    ref = chip_smoke.he_numpy_reference(data)
+    assert got.shape == ref.shape == (2, 20 * 2048)
+    assert np.abs(got - ref).max() <= chip_smoke.HE_BOUND_LSB

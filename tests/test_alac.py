@@ -8,7 +8,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs import alac as AL
+from ohpipeline_jax.codecs import alac as AL
 
 ORACLE = pathlib.Path(__file__).resolve().parent.parent / ".oracle_build" / "alac_oracle"
 
@@ -82,8 +82,8 @@ def test_correlated_stereo_bit_exact(tmp_path, rng):
 
 
 def test_m4a_container_path(tmp_path):
-    from ohpipeline_tpu.codecs.base import BufferReader, EndOfStream
-    from ohpipeline_tpu.containers.mpeg4 import write_m4a
+    from ohpipeline_jax.codecs.base import BufferReader, EndOfStream
+    from ohpipeline_jax.containers.mpeg4 import write_m4a
     x = tone(seconds=0.7)
     cookie, pkts = oracle_encode(x, 44100, tmp_path)
     m4a = write_m4a(pkts, cookie, 44100, 2, codec="alac",
@@ -106,8 +106,8 @@ def test_m4a_container_path(tmp_path):
 def test_registry_disambiguates_mp4(tmp_path):
     """ALAC-in-MP4 and AAC-in-MP4 both use ftyp; the registry must pick by
     track codec."""
-    from ohpipeline_tpu.codecs import default_registry
-    from ohpipeline_tpu.containers.mpeg4 import write_m4a
+    from ohpipeline_jax.codecs import default_registry
+    from ohpipeline_jax.containers.mpeg4 import write_m4a
     x = tone(seconds=0.3)
     cookie, pkts = oracle_encode(x, 44100, tmp_path)
     m4a = write_m4a(pkts, cookie, 44100, 2, codec="alac",

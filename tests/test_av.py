@@ -5,12 +5,12 @@ TestVolumeManager, TestTrackDatabase, TestPowerManager, TestMediaPlayer)."""
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.av import (ConfigManager, MediaPlayer,
+from ohpipeline_jax.av import (ConfigManager, MediaPlayer,
                                MediaPlayerInitParams, PowerManager, Product,
                                RamStore, Source, TrackDatabase,
                                UriProviderPlaylist, VolumeManager,
                                VolumeProfile)
-from ohpipeline_tpu.av.config import FileStore, StoreKeyNotFound
+from ohpipeline_jax.av.config import FileStore, StoreKeyNotFound
 
 
 class TestConfig:
@@ -120,7 +120,7 @@ class TestVolume:
     def test_unity_gain_volume_not_supported(self):
         # VolumeUnityGainBase::SetVolume throws VolumeNotSupported while
         # unity gain is active (VolumeManager.cpp:408-418)
-        from ohpipeline_tpu.av.volume import VolumeNotSupported
+        from ohpipeline_jax.av.volume import VolumeNotSupported
         vm, hw = self.make()
         vm.set_volume(30)
         vm.unity.set_unity_gain(True)
@@ -146,9 +146,9 @@ class TestVolume:
     def test_mute_reporter_and_standby(self):
         # MuteReporter dedupes + fans out (VolumeManager.cpp:828-868);
         # MuteUser unmutes when leaving standby (VolumeManager.cpp:821-825)
-        from ohpipeline_tpu.av.config import ConfigManager, RamStore
-        from ohpipeline_tpu.av.power import PowerManager
-        from ohpipeline_tpu.av.volume import VolumeManager, VolumeProfile
+        from ohpipeline_jax.av.config import ConfigManager, RamStore
+        from ohpipeline_jax.av.power import PowerManager
+        from ohpipeline_jax.av.volume import VolumeManager, VolumeProfile
         store = RamStore()
         power = PowerManager(store)
         hw = []
@@ -205,7 +205,7 @@ class TestVolume:
         store = RamStore()
         store.write("Volume.Enabled", struct.pack(">I", 0))
         hw2 = []
-        from ohpipeline_tpu.av.volume import VolumeNotSupported
+        from ohpipeline_jax.av.volume import VolumeNotSupported
         vm2 = VolumeManager(ConfigManager(store),
                             VolumeProfile(max_volume=100),
                             hw=hw2.append)
@@ -226,7 +226,7 @@ class TestVolume:
         assert hw[-1] == 70
 
     def test_volume_offsets_and_trims(self):
-        from ohpipeline_tpu.av.volume import (ChannelInvalid, Trims,
+        from ohpipeline_jax.av.volume import (ChannelInvalid, Trims,
                                               TrimChannelInvalid,
                                               TrimOutOfRange,
                                               VolumeOffsetOutOfRange,
@@ -267,8 +267,8 @@ class TestVolume:
         # VolumeUser stores the last-used volume and starts from it when
         # startup volume is disabled (ApplyStartupVolume,
         # VolumeManager.cpp:191-206)
-        from ohpipeline_tpu.av.config import ConfigManager, RamStore
-        from ohpipeline_tpu.av.volume import VolumeManager, VolumeProfile
+        from ohpipeline_jax.av.config import ConfigManager, RamStore
+        from ohpipeline_jax.av.volume import VolumeManager, VolumeProfile
         store = RamStore()
         vm = VolumeManager(ConfigManager(store), VolumeProfile())
         vm.user._startup_enabled.set(0)     # startup volume Off

@@ -3,13 +3,13 @@ MimeTypeList/FriendlyName/TransportRepeatRandom/ArtworkServer)."""
 
 import urllib.request
 
-from ohpipeline_tpu.av.config import ConfigManager
-from ohpipeline_tpu.av.misc import (FriendlyNameManager, KvpStore,
+from ohpipeline_jax.av.config import ConfigManager
+from ohpipeline_jax.av.misc import (FriendlyNameManager, KvpStore,
                                     MimeTypeList, MuteManager,
                                     TrackMetadata, TransportRepeatRandom,
                                     didl_lite, parse_didl_lite)
-from ohpipeline_tpu.av.product import Product
-from ohpipeline_tpu.net.artwork import ArtworkServer
+from ohpipeline_jax.av.product import Product
+from ohpipeline_jax.net.artwork import ArtworkServer
 
 
 class TestOhMetadata:
@@ -67,7 +67,7 @@ class TestMuteManager:
 
 class TestMimeTypes:
     def test_populate_from_registry(self):
-        from ohpipeline_tpu.codecs import default_registry
+        from ohpipeline_jax.codecs import default_registry
         ml = MimeTypeList()
         ml.populate_from_registry(default_registry)
         assert "audio/flac" in ml.types

@@ -7,13 +7,13 @@ import time
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.av.config import RamStore
-from ohpipeline_tpu.av.credentials import Credentials
-from ohpipeline_tpu.av.oauth import (DeviceCodeRequest, OAuthDeviceFlow,
+from ohpipeline_jax.av.config import RamStore
+from ohpipeline_jax.av.credentials import Credentials
+from ohpipeline_jax.av.oauth import (DeviceCodeRequest, OAuthDeviceFlow,
                                      TokenManager)
-from ohpipeline_tpu.av.pins import (Pin, PinsManager, TransportPinInvoker,
+from ohpipeline_jax.av.pins import (Pin, PinsManager, TransportPinInvoker,
                                     UrlPinInvoker)
-from ohpipeline_tpu.av import services as SVC
+from ohpipeline_jax.av import services as SVC
 
 
 class TestCredentials:
@@ -33,7 +33,7 @@ class TestCredentials:
         c2.add("qobuz.com")
         assert c2.get("qobuz.com") == ("alice", b"s3cret")
         # unregistered ids throw (Credentials.cpp Get -> Find)
-        from ohpipeline_tpu.av.credentials import CredentialsIdNotFound
+        from ohpipeline_jax.av.credentials import CredentialsIdNotFound
         with pytest.raises(CredentialsIdNotFound):
             c2.get("tidal.com")
 
@@ -192,7 +192,7 @@ class TestServices:
         </body></opml>"""
         http = lambda m, u, h, b=b"": (200, opml.encode())
         svc = SVC.TuneInService("pid", "user", http=http)
-        from ohpipeline_tpu.av.sources import PresetDatabase
+        from ohpipeline_jax.av.sources import PresetDatabase
         db = PresetDatabase()
         assert svc.refresh_into(db) == 2
         assert db.preset(0).uri == "http://a/s.mp3"
@@ -207,7 +207,7 @@ class TestServices:
 
             def stream(self, uri):
                 streamed.append(uri)
-                from ohpipeline_tpu.protocols.base import ProtocolStreamResult
+                from ohpipeline_jax.protocols.base import ProtocolStreamResult
                 return ProtocolStreamResult.SUCCESS
 
         p = SVC.ServiceProtocol("tidal", lambda uri: "http://cdn/x.flac",
@@ -225,9 +225,9 @@ class TestOAuthProvider:
     limited-input-flow jobs, error codes 800/803/804."""
 
     def make_mp(self):
-        from ohpipeline_tpu.av.media_player import MediaPlayer
-        from ohpipeline_tpu.av.oauth import OAuthDeviceFlow, TokenManager
-        from ohpipeline_tpu.net.providers import make_oauth_service
+        from ohpipeline_jax.av.media_player import MediaPlayer
+        from ohpipeline_jax.av.oauth import OAuthDeviceFlow, TokenManager
+        from ohpipeline_jax.net.providers import make_oauth_service
         mp = MediaPlayer()
         srv = FakeAuthServer()
         flow = OAuthDeviceFlow("tidal", "https://x/auth",
@@ -279,7 +279,7 @@ class TestOAuthProvider:
         assert tm.access_token("cp-1") == "AT-RT-secret"
 
     def test_error_codes(self):
-        from ohpipeline_tpu.net.odp import OdpError
+        from ohpipeline_jax.net.odp import OdpError
         mp, svc, tm = self.make_mp()
         pem = svc.invoke("GetPublicKey", {})["value"]
         k, iv, tok = self.encrypt_token(pem, b"RT")
@@ -305,7 +305,7 @@ class TestOAuthProvider:
         mp, svc, tm = self.make_mp()
         tm.add_token("s1", "r1")
         tm.add_token("l1", "r2", long_lived=True)
-        from ohpipeline_tpu.net.odp import OdpError
+        from ohpipeline_jax.net.odp import OdpError
         with pytest.raises(OdpError) as ei:      # wrong-kind clear
             svc.invoke("ClearLongLivedToken",
                        {"ServiceId": "tidal", "TokenId": "s1"})

@@ -8,11 +8,11 @@ under valgrind on every commit)."""
 
 import numpy as np
 
-from ohpipeline_tpu.codecs.base import (CodecBase, CodecRegistry,
+from ohpipeline_jax.codecs.base import (CodecBase, CodecRegistry,
                                         DecodedBatch, EndOfStream)
-from ohpipeline_tpu.core import events as ev
-from ohpipeline_tpu.core.streaminfo import EncodedStreamInfo, PcmStreamInfo
-from ohpipeline_tpu.pipeline.codec_controller import CodecController
+from ohpipeline_jax.core import events as ev
+from ohpipeline_jax.core.streaminfo import EncodedStreamInfo, PcmStreamInfo
+from ohpipeline_jax.pipeline.codec_controller import CodecController
 
 
 class _NoContainers:

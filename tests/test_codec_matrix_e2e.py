@@ -52,7 +52,7 @@ def _assert_cadence(pcm, rate, freq, tol_frac=0.02, tol_abs=8):
 
 @pytest.mark.parametrize("rate,bits", [(44100, 16), (48000, 24)])
 def test_matrix_wav(tmp_path, rate, bits):
-    from ohpipeline_tpu.codecs.wav import write_wav
+    from ohpipeline_jax.codecs.wav import write_wav
     amp = 28000 if bits == 16 else 7_000_000
     tone = _tone(997, rate, amp=amp)
     p = tmp_path / "t.wav"
@@ -63,7 +63,7 @@ def test_matrix_wav(tmp_path, rate, bits):
 
 
 def test_matrix_aiff(tmp_path):
-    from ohpipeline_tpu.codecs.aiff import write_aiff
+    from ohpipeline_jax.codecs.aiff import write_aiff
     tone = _tone(997, 44100)
     p = tmp_path / "t.aiff"
     p.write_bytes(write_aiff(tone, 44100, 16))
@@ -74,7 +74,7 @@ def test_matrix_aiff(tmp_path):
 
 @pytest.mark.parametrize("rate,bits", [(44100, 16), (48000, 24)])
 def test_matrix_flac(tmp_path, rate, bits):
-    from ohpipeline_tpu.codecs import flac
+    from ohpipeline_jax.codecs import flac
     amp = 28000 if bits == 16 else 7_000_000
     tone = _tone(997, rate, amp=amp)
     p = tmp_path / "t.flac"
@@ -105,7 +105,7 @@ def test_matrix_aac_adts(tmp_path):
 
 
 def test_matrix_mp3(tmp_path):
-    from ohpipeline_tpu.codecs.mp3 import encoder as ENC
+    from ohpipeline_jax.codecs.mp3 import encoder as ENC
     # one spectral line: f = (bin + 0.5) * rate / 1152
     data = ENC.build_stream([ENC.tone_spectrum(26)], nframes=40,
                             global_gain=180)
@@ -118,7 +118,7 @@ def test_matrix_mp3(tmp_path):
 
 
 def test_matrix_vorbis(tmp_path):
-    from ohpipeline_tpu.codecs.vorbis.encoder import StreamSpec
+    from ohpipeline_jax.codecs.vorbis.encoder import StreamSpec
     spec = StreamSpec(channels=1, sample_rate=44100, bs0=256, bs1=1024)
     # one long-block residue bin: f = (k + 0.5) * rate / n
     k = 23

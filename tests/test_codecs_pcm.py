@@ -8,9 +8,9 @@ cadence of the reconstruction.
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import codecs
-from ohpipeline_tpu.codecs import aiff, dsd, wav
-from ohpipeline_tpu.codecs.base import BufferReader, EndOfStream
+from ohpipeline_jax import codecs
+from ohpipeline_jax.codecs import aiff, dsd, wav
+from ohpipeline_jax.codecs.base import BufferReader, EndOfStream
 
 
 def sine_tone(rate=44100, freq=1000, seconds=1.0, bits=16, channels=2):

@@ -6,10 +6,10 @@ import struct
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs.base import BufferReader
-from ohpipeline_tpu.containers import (ContainerController, OggReader,
+from ohpipeline_jax.codecs.base import BufferReader
+from ohpipeline_jax.containers import (ContainerController, OggReader,
                                        default_containers, id3v2, ogg)
-from ohpipeline_tpu.containers import mpeg4, mpegts
+from ohpipeline_jax.containers import mpeg4, mpegts
 
 
 def make_id3(frames: dict, version=4) -> bytes:
@@ -42,7 +42,7 @@ class TestId3v2:
         assert r.read(10) == b"AUDIO_DATA"
 
     def test_controller_chains_to_flac(self):
-        from ohpipeline_tpu.codecs import flac
+        from ohpipeline_jax.codecs import flac
         t = np.arange(4410) / 44100
         tone = np.tile(np.rint(np.sin(2 * np.pi * 1000 * t) * 20000)
                        .astype(np.int32), (2, 1))

@@ -7,11 +7,11 @@ MsgAudio::Split semantics (SURVEY.md §4.1).
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.core import events
-from ohpipeline_tpu.core.jiffies import (DSD_RATES, PCM_RATES, PER_SECOND,
+from ohpipeline_jax.core import events
+from ohpipeline_jax.core.jiffies import (DSD_RATES, PCM_RATES, PER_SECOND,
                                          Jiffies)
-from ohpipeline_tpu.core.ramp import (RAMP_MAX, Ramp, RampDirection, set_ramp)
-from ohpipeline_tpu.core.streaminfo import PcmStreamInfo
+from ohpipeline_jax.core.ramp import (RAMP_MAX, Ramp, RampDirection, set_ramp)
+from ohpipeline_jax.core.streaminfo import PcmStreamInfo
 
 
 class TestJiffies:

@@ -11,9 +11,9 @@ reference decoder in test_flac_oracle.py when the oracle is built).
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs import flac
-from ohpipeline_tpu.codecs.flac import bitreader as BR
-from ohpipeline_tpu.codecs.flac import frames as FF
+from ohpipeline_jax.codecs import flac
+from ohpipeline_jax.codecs.flac import bitreader as BR
+from ohpipeline_jax.codecs.flac import frames as FF
 
 
 def tone(rate=44100, freq=1000, seconds=0.5, bits=16, channels=2, phase=0.0):
@@ -167,8 +167,37 @@ def test_corrupt_frame_crc_is_skipped_not_crash():
 
 
 def test_not_flac_rejected():
-    from ohpipeline_tpu.codecs.base import BufferReader, CodecStreamCorrupt
+    from ohpipeline_jax.codecs.base import BufferReader, CodecStreamCorrupt
     codec = flac.CodecFlac()
     assert not codec.recognise(b"RIFFxxxx")
     with pytest.raises(CodecStreamCorrupt):
         codec.stream_initialise(BufferReader(b"garbage" * 100))
+
+
+@pytest.mark.parametrize("use_native", [True, False])
+def test_one_program_shape_across_tail_and_seek(use_native):
+    """Full groups, the short last group and the groups after a seek all
+    run the group program at one shape, so a stream compiles it once;
+    the samples after the seek equal the source's tail."""
+    from ohpipeline_jax.codecs.base import BufferReader, EndOfStream
+    x = tone(seconds=1.2)                 # 51 full frames + a short one
+    data = flac.encode_flac(x, 44100, 16, blocksize=1024)
+    flac._synthesise_group.clear_cache()
+    codec = flac.CodecFlac(use_native=use_native)
+    reader = BufferReader(data)
+    codec.stream_initialise(reader)
+    head = codec.process(reader).resolve()
+    np.testing.assert_array_equal(head, x[:, :head.shape[1]])
+    pos = codec.try_seek(x.shape[1] // 2)
+    assert reader.try_seek_bytes(pos)
+    codec.notify_seek_done(pos)
+    parts = []
+    while True:
+        try:
+            parts.append(codec.process(reader).resolve())
+        except EndOfStream:
+            break
+    tail = np.concatenate(parts, axis=1)
+    assert x.shape[1] // 3 < tail.shape[1] < x.shape[1] - head.shape[1]
+    np.testing.assert_array_equal(tail, x[:, x.shape[1] - tail.shape[1]:])
+    assert flac._synthesise_group._cache_size() == 1

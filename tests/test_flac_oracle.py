@@ -14,7 +14,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs import flac
+from ohpipeline_jax.codecs import flac
 
 ORACLE = pathlib.Path(__file__).resolve().parent.parent / ".oracle_build" / "flac_oracle"
 

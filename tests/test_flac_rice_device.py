@@ -14,10 +14,10 @@ and short final frames.
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import native
-from ohpipeline_tpu.codecs import flac
-from ohpipeline_tpu.codecs.flac import frames as FF
-from ohpipeline_tpu.codecs.flac import _synthesise_group_rice
+from ohpipeline_jax import native
+from ohpipeline_jax.codecs import flac
+from ohpipeline_jax.codecs.flac import frames as FF
+from ohpipeline_jax.codecs.flac import _synthesise_group_rice
 
 pytestmark = pytest.mark.skipif(not native.have_flac_unpack(),
                                 reason="native flac unpacker unavailable")

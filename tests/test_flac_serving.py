@@ -4,8 +4,8 @@ lengths, blocksize tails and group boundaries."""
 
 import numpy as np
 
-from ohpipeline_tpu.codecs import flac
-from ohpipeline_tpu.codecs.flac.serving import decode_flac_streams_device
+from ohpipeline_jax.codecs import flac
+from ohpipeline_jax.codecs.flac.serving import decode_flac_streams_device
 
 
 def _track(seed, seconds, rate=44100, amp=20000):

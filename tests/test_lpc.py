@@ -1,16 +1,19 @@
 """Bit-exactness tests for batched LPC residual synthesis.
 
 The ground truth is a Python bigint implementation of the FLAC recurrence;
-the lax.scan and Pallas(interpret) paths must match it exactly, including
+the lax.scan path and the Pallas kernel (interpret mode here, compiled
+on a GPU) must match it exactly, including
 worst-case magnitudes (25-bit samples, 15-bit coeffs, order 32, any shift).
 """
+
+import functools
 
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from ohpipeline_tpu.ops import lpc
+from ohpipeline_jax.ops import lpc
 
 
 def _random_case(rng, B, N, max_order=32, sample_bits=17, coeff_bits=15,
@@ -123,41 +126,81 @@ class TestScanBitExact:
         _check(data, coeffs, shift, order)
 
 
+def _cases(rng):
+    """The scan suite's cases, as (name, data, coeffs, shift, order)."""
+    out = [("random",) + _random_case(rng, B=40, N=37, sample_bits=20),
+           ("24bit",) + _random_case(rng, B=8, N=48, sample_bits=25,
+                                     coeff_bits=15)]
+    B = 8
+    data = np.zeros((B, 34), np.int32)
+    data[:, :32] = (rng.integers(0, 2, (B, 32)) * 2 - 1) * ((1 << 24) - 1)
+    coeffs = ((rng.integers(0, 2, (B, 32)) * 2 - 1)
+              * ((1 << 14) - 1)).astype(np.int32)
+    out.append(("worst_accumulator", data, coeffs,
+                np.full((B,), 15, np.int32), np.full((B,), 32, np.int32)))
+    parts = [_random_case(rng, B=4, N=32, sample_bits=12, coeff_bits=6,
+                          fixed_shift=sh) for sh in (0, 1, 12, 13, 24, 25, 31)]
+    out.append(("shift_extremes",) + tuple(np.concatenate(p) for p in
+                                           zip(*parts)))
+    fixed = np.zeros((5, lpc.MAX_ORDER), np.int32)
+    for b in range(5):
+        fixed[b, :len(lpc.FIXED_COEFFS[b])] = lpc.FIXED_COEFFS[b]
+    out.append(("fixed_predictors",
+                rng.integers(-1000, 1000, (5, 40)).astype(np.int32), fixed,
+                np.zeros((5,), np.int32), np.arange(5, dtype=np.int32)))
+    return out
+
+
+CASES = ("random", "24bit", "worst_accumulator", "shift_extremes",
+         "fixed_predictors")
+
+
+def _case(name):
+    return {c[0]: c[1:] for c in _cases(np.random.default_rng(0xA4D10))}[name]
+
+
 class TestPallasInterpret:
-    """Pallas kernel correctness via interpret mode on CPU."""
+    """The GPU kernel (Pallas through Triton): its arithmetic in
+    interpret mode on the CPU, its padding and shapes, and the choice of
+    kernel by platform."""
 
-    def test_matches_scan(self, rng):
-        import jax
-        from jax.experimental import pallas as pl  # noqa: F401
-        data, coeffs, shift, order = _random_case(rng, B=8, N=32,
-                                                  sample_bits=20)
+    @pytest.mark.parametrize("name", CASES)
+    def test_interpret_matches_oracle(self, name):
+        data, coeffs, shift, order = _case(name)
         want = lpc.lpc_synthesize_py(data, coeffs, shift, order)
-        from ohpipeline_tpu.ops.lpc import _lpc_kernel, MAX_ORDER
-        import jax.numpy as jnp
-        from jax.experimental.pallas import tpu as pltpu
-
-        B, N = data.shape
-        out = pl.pallas_call(
-            _lpc_kernel,
-            out_shape=jax.ShapeDtypeStruct((N, B), jnp.int32),
-            grid=(1, 1),
-            in_specs=[
-                pl.BlockSpec((N, B), lambda i, j: (j, i)),
-                pl.BlockSpec((MAX_ORDER, B), lambda i, j: (0, i)),
-                pl.BlockSpec((1, B), lambda i, j: (0, i)),
-                pl.BlockSpec((1, B), lambda i, j: (0, i)),
-            ],
-            out_specs=pl.BlockSpec((N, B), lambda i, j: (j, i)),
-            scratch_shapes=[
-                pltpu.VMEM((MAX_ORDER, B), jnp.int32),
-                pltpu.VMEM((MAX_ORDER, B), jnp.int32),
-                pltpu.VMEM((MAX_ORDER, B), jnp.int32),
-            ],
-            interpret=True,
-        )(jnp.asarray(data.T), jnp.asarray(coeffs.T),
-          jnp.asarray(shift.reshape(1, B)), jnp.asarray(order.reshape(1, B)))
-        np.testing.assert_array_equal(np.asarray(out).T.astype(np.int64),
+        got = lpc.lpc_synthesize_pallas(data, coeffs, shift, order,
+                                        interpret=True)
+        np.testing.assert_array_equal(np.asarray(got).astype(np.int64),
                                       want)
+
+    @pytest.mark.parametrize("B,N", [(5, 13), (64, 16), (33, 9)])
+    def test_padding_and_shapes(self, rng, B, N):
+        import jax
+        data, coeffs, shift, order = _random_case(rng, B=B, N=N,
+                                                  sample_bits=16)
+        f = functools.partial(lpc.lpc_synthesize_pallas, interpret=True)
+        jaxpr = jax.make_jaxpr(f)(data, coeffs, shift, order)
+        calls = [e for e in jaxpr.jaxpr.eqns[0].params["jaxpr"].eqns
+                 if e.primitive.name == "pallas_call"]
+        assert len(calls) == 1
+        block_rows, unroll = lpc.BLOCK_ROWS, lpc.UNROLL
+        Bp = -(-B // block_rows) * block_rows
+        Np = -(-N // unroll) * unroll
+        # time-major padded operands, one program per row block
+        assert [v.aval.shape for v in calls[0].invars] == [
+            (Np + unroll, Bp), (lpc.MAX_ORDER, Bp), (Bp,), (Bp,)]
+        assert calls[0].outvars[0].aval.shape == (Np, Bp)
+        assert calls[0].params["grid_mapping"].grid == (Bp // block_rows,)
+        got = np.asarray(f(data, coeffs, shift, order))
+        assert got.shape == (B, N) and got.dtype == np.int32
+        np.testing.assert_array_equal(
+            got.astype(np.int64),
+            lpc.lpc_synthesize_py(data, coeffs, shift, order))
+
+    @pytest.mark.parametrize("platform,want", [
+        ("gpu", "lpc_synthesize_pallas"), ("cpu", "lpc_synthesize_scan")])
+    def test_kernel_choice_by_platform(self, platform, want):
+        assert lpc.kernel_for(platform) is getattr(lpc, want)
 
     def test_dispatcher_on_cpu_uses_scan(self, rng):
         data, coeffs, shift, order = _random_case(rng, B=4, N=16)
@@ -165,3 +208,30 @@ class TestPallasInterpret:
                                  jnp.asarray(shift), jnp.asarray(order))
         want = lpc.lpc_synthesize_py(data, coeffs, shift, order)
         np.testing.assert_array_equal(np.asarray(got).astype(np.int64), want)
+
+    @pytest.mark.parametrize("name", CASES)
+    def test_kernel_matches_scan(self, name):
+        """The kernel in interpret mode against the scan it replaces on
+        the GPU, bit for bit."""
+        args = [jnp.asarray(a) for a in _case(name)]
+        np.testing.assert_array_equal(
+            np.asarray(lpc.lpc_synthesize_pallas(*args, interpret=True)),
+            np.asarray(lpc.lpc_synthesize_scan(*args)))
+
+
+@pytest.mark.gpu
+class TestKernelOnGpu:
+    """The compiled kernel on the card (no interpret mode), against the
+    bigint oracle and through the default dispatch."""
+
+    @pytest.mark.parametrize("name", CASES)
+    def test_compiled_matches_oracle(self, gpu, name):
+        data, coeffs, shift, order = _case(name)
+        got = lpc.lpc_synthesize(jnp.asarray(data), jnp.asarray(coeffs),
+                                 jnp.asarray(shift), jnp.asarray(order))
+        np.testing.assert_array_equal(
+            np.asarray(got).astype(np.int64),
+            lpc.lpc_synthesize_py(data, coeffs, shift, order))
+
+    def test_dispatch_picks_kernel(self, gpu):
+        assert lpc.kernel_for(gpu) is lpc.lpc_synthesize_pallas

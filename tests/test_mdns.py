@@ -5,7 +5,7 @@ import socket
 import struct
 import time
 
-from ohpipeline_tpu.net import mdns as M
+from ohpipeline_jax.net import mdns as M
 
 
 def query(name: str, qtype: int) -> bytes:
@@ -55,7 +55,7 @@ class TestMdns:
             _pri, _wt, port = struct.unpack(">HHH", srv[2][:6])
             assert port == 5000
             txt = next(a for a in ans if a[1] == M.TYPE_TXT)
-            assert b"am=ohpipeline-tpu" in txt[2]
+            assert b"am=ohpipeline-jax" in txt[2]
             # instance-name SRV query
             cli.sendto(query("AABBCCDDEEFF@Den._raop._tcp.local",
                              M.TYPE_SRV), ("127.0.0.1", rx.port))

@@ -13,7 +13,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs.mp3 import decode_mp3, encoder as ENC
+from ohpipeline_jax.codecs.mp3 import decode_mp3, encoder as ENC
 
 ORACLE = pathlib.Path(__file__).resolve().parent.parent / ".oracle_build" / "mad_oracle"
 SILENT_MP3 = pathlib.Path(
@@ -185,8 +185,8 @@ def test_seek_cbr(tmp_path):
     """try_seek lands on the frame boundary; decode resumes identically
     (crafted frames have no bit reservoir, so the landing frame is
     self-contained)."""
-    from ohpipeline_tpu.codecs import BufferReader
-    from ohpipeline_tpu.codecs.mp3 import CodecMp3
+    from ohpipeline_jax.codecs import BufferReader
+    from ohpipeline_jax.codecs.mp3 import CodecMp3
     spec = np.zeros(576, np.int32)
     spec[46] = 13
     data = ENC.build_stream([spec], nframes=20, global_gain=180)
@@ -215,7 +215,7 @@ def test_seek_cbr(tmp_path):
 
 
 def test_recognition_and_real_file_smoke():
-    from ohpipeline_tpu.codecs.mp3 import CodecMp3
+    from ohpipeline_jax.codecs.mp3 import CodecMp3
     c = CodecMp3()
     spec = np.zeros(576, np.int32)
     data = ENC.build_stream([spec], nframes=3)
@@ -237,8 +237,8 @@ def test_parallel_filterbank_matches_scan(tmp_path, monkeypatch):
     polyphase matmul over different shapes, so f32 reduction order
     (and hence borderline rints) can differ in the last bit — the
     same tolerance the libmad conformance tests hold."""
-    from ohpipeline_tpu.codecs import BufferReader
-    from ohpipeline_tpu.codecs.mp3 import CodecMp3, EndOfStream
+    from ohpipeline_jax.codecs import BufferReader
+    from ohpipeline_jax.codecs.mp3 import CodecMp3, EndOfStream
 
     def _decode(data, group_frames):
         codec = CodecMp3(group_frames=group_frames)

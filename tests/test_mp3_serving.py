@@ -7,8 +7,8 @@ test_vorbis_device.py)."""
 
 import numpy as np
 
-from ohpipeline_tpu.codecs.mp3 import decode_mp3, encoder as ENC
-from ohpipeline_tpu.codecs.mp3.serving import decode_mp3_streams_device
+from ohpipeline_jax.codecs.mp3 import decode_mp3, encoder as ENC
+from ohpipeline_jax.codecs.mp3.serving import decode_mp3_streams_device
 
 
 def _stream(seed: int, nframes: int) -> bytes:

@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs.base import BufferReader
-from ohpipeline_tpu.codecs.mp3 import CodecMp3, parse_vbr_header
-from ohpipeline_tpu.codecs.mp3 import bitstream as BS
-from ohpipeline_tpu.codecs.mp3 import encoder as ENC
+from ohpipeline_jax.codecs.base import BufferReader
+from ohpipeline_jax.codecs.mp3 import CodecMp3, parse_vbr_header
+from ohpipeline_jax.codecs.mp3 import bitstream as BS
+from ohpipeline_jax.codecs.mp3 import encoder as ENC
 
 
 def _cbr_stream(seconds=2.0, rate=44100):
@@ -60,7 +60,7 @@ def test_xing_parse_and_duration():
     # duration from the Xing frame count, not the raw byte estimate
     expect = vbr["frames"] * hdr.samples_per_frame
     got = info.track_length_jiffies // \
-        __import__("ohpipeline_tpu.core.jiffies",
+        __import__("ohpipeline_jax.core.jiffies",
                    fromlist=["Jiffies"]).Jiffies.per_sample(hdr.sample_rate)
     assert got == expect
 
@@ -86,7 +86,7 @@ def test_xing_toc_seek_interpolates():
 def test_xing_frame_not_decoded_as_audio():
     data = _cbr_stream(seconds=0.5)
     full = _with_xing(data)
-    from ohpipeline_tpu.codecs.mp3 import decode_mp3
+    from ohpipeline_jax.codecs.mp3 import decode_mp3
     _, pcm_plain = decode_mp3(data)
     _, pcm_xing = decode_mp3(full)
     # same frame count: the Xing frame was skipped, not decoded

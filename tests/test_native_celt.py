@@ -19,7 +19,7 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import native
+from ohpipeline_jax import native
 
 ORACLE = pathlib.Path(__file__).resolve().parent.parent \
     / ".oracle_build" / "opus_oracle"
@@ -61,7 +61,7 @@ def _content(seconds: float, ch: int) -> np.ndarray:
 def test_native_matches_python_fallback(ch, mode, bitrate, monkeypatch):
     if not ORACLE.exists():
         pytest.skip("opus oracle unavailable")
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     data = _encode(_content(2.0, ch), mode, bitrate)
 
     monkeypatch.setenv("OHP_CELT_PY", "1")
@@ -77,13 +77,13 @@ def test_native_matches_python_fallback(ch, mode, bitrate, monkeypatch):
 def test_native_entropy_layer_is_active():
     """The default decode path must actually use celt_core (no silent
     permanent fallback)."""
-    from ohpipeline_tpu.codecs.opus import celt as C
+    from ohpipeline_jax.codecs.opus import celt as C
     assert C._use_native_celt()
 
 
 def test_comb_filter_and_deemphasis_match_python():
     rng = np.random.default_rng(3)
-    from ohpipeline_tpu.codecs.opus import celt as C
+    from ohpipeline_jax.codecs.opus import celt as C
     win = C.celt_mode().window
     x_py = rng.standard_normal(1024 + 960)
     x_nat = x_py.copy()

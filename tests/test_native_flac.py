@@ -4,10 +4,10 @@ batch arrays, identical decoded PCM."""
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import native
-from ohpipeline_tpu.codecs import flac
-from ohpipeline_tpu.codecs.flac import frames as FF
-from ohpipeline_tpu.codecs.flac.bitreader import BitReader
+from ohpipeline_jax import native
+from ohpipeline_jax.codecs import flac
+from ohpipeline_jax.codecs.flac import frames as FF
+from ohpipeline_jax.codecs.flac.bitreader import BitReader
 
 pytestmark = pytest.mark.skipif(not native.have_flac_unpack(),
                                 reason="g++ unavailable")

@@ -30,7 +30,7 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import native
+from ohpipeline_jax import native
 
 ORACLES = pathlib.Path(__file__).resolve().parent.parent / ".oracle_build"
 
@@ -40,7 +40,7 @@ ORACLES = pathlib.Path(__file__).resolve().parent.parent / ".oracle_build"
 
 
 def _alac_cfg_and_packets(seconds: float = 0.6):
-    from ohpipeline_tpu.codecs import alac as AL
+    from ohpipeline_jax.codecs import alac as AL
     oracle = ORACLES / "alac_oracle"
     if not oracle.exists():
         pytest.skip("alac oracle unavailable")
@@ -75,7 +75,7 @@ def _alac_cfg_and_packets(seconds: float = 0.6):
 
 def _alac_decode_both(pk: bytes, cfg, monkeypatch):
     """(kind, pcm) through the native path and the pure-Python path."""
-    from ohpipeline_tpu.codecs import alac as AL
+    from ohpipeline_jax.codecs import alac as AL
     outs = []
     for force_py in (False, True):
         if force_py:
@@ -139,7 +139,7 @@ def _mp3_walk(data: bytes):
     """All parsed frames' Huffman spectra through Mp3Stream (the exact
     layer mp3_core.cc implements; header/side-info/resync are shared
     Python either way, and no jit is entered — ASAN-safe)."""
-    from ohpipeline_tpu.codecs.mp3.bitstream import Mp3Stream
+    from ohpipeline_jax.codecs.mp3.bitstream import Mp3Stream
     st = Mp3Stream(data)
     out = []
     while True:
@@ -165,7 +165,7 @@ def test_mp3_huffman_survives_bitflips(monkeypatch):
     fallback must agree granule-for-granule on the decoded spectra (or
     skip/fail identically) — header/side-info parsing and resync are
     shared code, so the diff surface is exactly mp3_parse_huffman."""
-    from ohpipeline_tpu.codecs.mp3 import encoder as ENC
+    from ohpipeline_jax.codecs.mp3 import encoder as ENC
     rng = np.random.default_rng(55)
     spec = np.zeros((2, 576), np.int32)
     m = rng.random((2, 576)) < 0.3
@@ -223,10 +223,10 @@ def test_celt_survives_hostile_packets():
     packet: same exception kind, or int16-identical PCM.  States are
     re-created after any rejected packet (post-failure decoder state is
     not part of the shared contract)."""
-    from ohpipeline_tpu.codecs.base import BufferReader
-    from ohpipeline_tpu.codecs.opus import _OpusStream
-    from ohpipeline_tpu.codecs.opus_headers import parse_opus_head
-    from ohpipeline_tpu.containers.ogg import OggReader
+    from ohpipeline_jax.codecs.base import BufferReader
+    from ohpipeline_jax.codecs.opus import _OpusStream
+    from ohpipeline_jax.codecs.opus_headers import parse_opus_head
+    from ohpipeline_jax.containers.ogg import OggReader
 
     rate = 48000
     t = np.arange(int(rate * 0.6)) / rate
@@ -293,8 +293,8 @@ def test_flac_group_parsers_survive_corruption():
     0 <= n <= max_frames, the bit cursor inside the buffer, per-frame
     blocksizes within streaminfo's bound.  Run under OHP_NATIVE_ASAN=1
     + LD_PRELOAD=libasan for the memory-safety half of the contract."""
-    from ohpipeline_tpu.codecs.flac import frames as FF
-    from ohpipeline_tpu.codecs.flac.encoder import encode_flac
+    from ohpipeline_jax.codecs.flac import frames as FF
+    from ohpipeline_jax.codecs.flac.encoder import encode_flac
 
     rng = np.random.default_rng(31)
     n = 4096 * 6

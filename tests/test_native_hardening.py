@@ -16,8 +16,8 @@ equivalent guarantees for the C unpackers:
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import native
-from ohpipeline_tpu.codecs.flac.bitreader import BitWriter, crc8, crc16
+from ohpipeline_jax import native
+from ohpipeline_jax.codecs.flac.bitreader import BitWriter, crc8, crc16
 
 
 pytestmark = pytest.mark.skipif(
@@ -171,8 +171,8 @@ def test_alac_python_fallback_matches_native(monkeypatch):
     toolchain)."""
     import pathlib
     import numpy as np
-    from ohpipeline_tpu import native
-    from ohpipeline_tpu.codecs import alac as AL
+    from ohpipeline_jax import native
+    from ohpipeline_jax.codecs import alac as AL
     ORACLE = pathlib.Path(__file__).resolve().parent.parent \
         / ".oracle_build" / "alac_oracle"
     if not ORACLE.exists() or not native.have_alac_core():
@@ -217,12 +217,12 @@ def test_alac_python_fallback_matches_native(monkeypatch):
 def test_mp3_python_fallback_matches_native(monkeypatch):
     """Pure-Python MP3 Huffman decode agrees with the C++ core."""
     import numpy as np
-    from ohpipeline_tpu import native
+    from ohpipeline_jax import native
     if not native.have_mp3_core():
         import pytest
         pytest.skip("native mp3 core unavailable")
-    from ohpipeline_tpu.codecs.mp3 import decode_mp3
-    from ohpipeline_tpu.codecs.mp3 import encoder as ENC
+    from ohpipeline_jax.codecs.mp3 import decode_mp3
+    from ohpipeline_jax.codecs.mp3 import encoder as ENC
     rng = np.random.default_rng(6)
     spec = np.zeros((2, 576), np.int32)
     m = rng.random((2, 576)) < 0.3
@@ -240,9 +240,9 @@ def test_vorbis_python_fallback_matches_native(monkeypatch):
     including the partial-spectrum end-of-packet path."""
     import numpy as np
     import pytest
-    from ohpipeline_tpu import native
-    from ohpipeline_tpu.codecs.vorbis import decode_vorbis
-    from ohpipeline_tpu.codecs.vorbis.encoder import StreamSpec
+    from ohpipeline_jax import native
+    from ohpipeline_jax.codecs.vorbis import decode_vorbis
+    from ohpipeline_jax.codecs.vorbis.encoder import StreamSpec
     if not native.have_vorbis_core():
         pytest.skip("native vorbis core unavailable")
     rng = np.random.default_rng(11)
@@ -274,7 +274,7 @@ def test_silk_parse_survives_random_bytes():
     import os
     if not native.have_silk_core():
         pytest.skip("native silk core unavailable")
-    from ohpipeline_tpu.codecs.opus import silk as S
+    from ohpipeline_jax.codecs.opus import silk as S
     rng = np.random.default_rng(99)
     for trial in range(40):
         n = int(rng.integers(1, 200))
@@ -320,11 +320,11 @@ def test_vorbis_residue_survives_random_packets(monkeypatch):
     reject/partial-spectrum behaviour), not just success semantics."""
     import numpy as np
     import pytest
-    from ohpipeline_tpu import native
-    from ohpipeline_tpu.codecs.vorbis.encoder import StreamSpec
-    from ohpipeline_tpu.codecs.vorbis.headers import (parse_identification,
+    from ohpipeline_jax import native
+    from ohpipeline_jax.codecs.vorbis.encoder import StreamSpec
+    from ohpipeline_jax.codecs.vorbis.headers import (parse_identification,
                                                       parse_setup)
-    from ohpipeline_tpu.codecs.vorbis.synthesis import PacketDecoder
+    from ohpipeline_jax.codecs.vorbis.synthesis import PacketDecoder
     if not native.have_vorbis_core():
         pytest.skip("native vorbis core unavailable")
     spec = StreamSpec(channels=2, sample_rate=44100, bs0=256, bs1=1024,

@@ -18,7 +18,7 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import native
+from ohpipeline_jax import native
 
 ORACLE = pathlib.Path(__file__).resolve().parent.parent \
     / ".oracle_build" / "opus_oracle"
@@ -62,7 +62,7 @@ def test_native_parse_matches_python_fallback(ch, mode, bitrate,
                                               monkeypatch):
     if not ORACLE.exists():
         pytest.skip("opus oracle unavailable")
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     data = _encode(_content(2.0, ch), mode, bitrate)
 
     monkeypatch.setenv("OHP_SILK_PY", "1")
@@ -79,11 +79,11 @@ def test_native_parse_lbrr_frames_match(monkeypatch):
     must match the Python parser's (indices and pulses)."""
     if not ORACLE.exists():
         pytest.skip("opus oracle unavailable")
-    from ohpipeline_tpu.codecs import opus_headers
-    from ohpipeline_tpu.codecs.opus import split_packet_frames
-    from ohpipeline_tpu.codecs.opus import silk as S
-    from ohpipeline_tpu.containers.ogg import OggReader
-    from ohpipeline_tpu.codecs.base import BufferReader
+    from ohpipeline_jax.codecs import opus_headers
+    from ohpipeline_jax.codecs.opus import split_packet_frames
+    from ohpipeline_jax.codecs.opus import silk as S
+    from ohpipeline_jax.containers.ogg import OggReader
+    from ohpipeline_jax.codecs.base import BufferReader
 
     data = _encode(_content(2.0, 1), "silkfec", 24000)
     ogg = OggReader(BufferReader(data))
@@ -132,5 +132,5 @@ def test_native_parse_lbrr_frames_match(monkeypatch):
 def test_native_parse_is_active():
     """The default decode path must actually use silk_parse.cc (no
     silent permanent fallback)."""
-    from ohpipeline_tpu.codecs.opus import silk as S
+    from ohpipeline_jax.codecs.opus import silk as S
     assert S._use_native_parse()

@@ -7,16 +7,16 @@ import time
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.net import songcast as sc
-from ohpipeline_tpu.net import scd as scd_mod
-from ohpipeline_tpu.net.odp import OdpClient, OdpServer
-from ohpipeline_tpu.net.providers import make_device
+from ohpipeline_jax.net import songcast as sc
+from ohpipeline_jax.net import scd as scd_mod
+from ohpipeline_jax.net.odp import OdpClient, OdpServer
+from ohpipeline_jax.net.providers import make_device
 
 
 class TestOhmWire:
     def test_audio_roundtrip(self):
         pcm = np.arange(-400, 400, dtype=np.int32).reshape(2, -1)
-        from ohpipeline_tpu.ops.pcm import pack_pcm_bytes
+        from ohpipeline_jax.ops.pcm import pack_pcm_bytes
         msg = sc.OhmAudio(frame=7, sample_start=1000, samples_total=44100,
                           sample_rate=44100, bit_depth=24, channels=2,
                           payload=pack_pcm_bytes(pcm, 24, big_endian=True),
@@ -27,7 +27,7 @@ class TestOhmWire:
         back = sc.OhmAudio.decode(wire[8:])
         assert back.frame == 7 and back.sample_rate == 44100
         assert back.media_latency == 123 and back.bit_depth == 24
-        from ohpipeline_tpu.ops.pcm import unpack_pcm_bytes
+        from ohpipeline_jax.ops.pcm import unpack_pcm_bytes
         np.testing.assert_array_equal(
             unpack_pcm_bytes(back.payload, 24, 2, big_endian=True), pcm)
 
@@ -122,8 +122,8 @@ class TestScd:
 
 @pytest.fixture
 def media_player():
-    from ohpipeline_tpu.av import MediaPlayer, MediaPlayerInitParams
-    from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+    from ohpipeline_jax.av import MediaPlayer, MediaPlayerInitParams
+    from ohpipeline_jax.pipeline.manager import PipelineInitParams
     pp = PipelineInitParams()
     pp.gorge_jiffies = 0
     pp.threaded_starvation_ramper = False
@@ -182,7 +182,7 @@ class TestOdp:
             client.invoke("Transport", "PlayUri",
                           uri="tone://sine.wav?pitch=500&duration=1")
             # drain the pipeline output (no real animator in this test)
-            from ohpipeline_tpu.pipeline import AnimatorBatch
+            from ohpipeline_jax.pipeline import AnimatorBatch
             chunks = []
             AnimatorBatch(media_player.pipeline.pipeline.predriver,
                           lambda s, i: chunks.append(s),
@@ -248,7 +248,7 @@ class TestSsdpMsearchObserver:
     def test_recent_msearch_recording(self):
         """SsdpResponder keeps the last distinct M-SEARCH sources with
         ages (MSearchObserver, ProviderDebug.cpp:76-106)."""
-        from ohpipeline_tpu.net.upnp import SsdpResponder, UpnpDevice
+        from ohpipeline_jax.net.upnp import SsdpResponder, UpnpDevice
         dev = UpnpDevice("Test", udn="uuid:test-1")
         r = SsdpResponder(dev, bind="127.0.0.1", port=0)
         try:

@@ -10,7 +10,7 @@ import time
 
 import pytest
 
-from ohpipeline_tpu.net.ntp import (NTP_UNIX_EPOCH_DELTA, NtpClient,
+from ohpipeline_jax.net.ntp import (NTP_UNIX_EPOCH_DELTA, NtpClient,
                                     UnixTimestamp)
 
 

@@ -5,9 +5,9 @@ import time
 
 import pytest
 
-from ohpipeline_tpu.av.ops_support import BufferedLog, FaultCode, RebootHandler
-from ohpipeline_tpu.net import songcast as sc
-from ohpipeline_tpu.pipeline.observer import ObserverSync, ObserverThread
+from ohpipeline_jax.av.ops_support import BufferedLog, FaultCode, RebootHandler
+from ohpipeline_jax.net import songcast as sc
+from ohpipeline_jax.pipeline.observer import ObserverSync, ObserverThread
 
 
 class TestOhz:

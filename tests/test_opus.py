@@ -10,9 +10,9 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import codecs
-from ohpipeline_tpu.codecs import CodecStreamCorrupt
-from ohpipeline_tpu.codecs.opus import decode_opus, split_packet_frames
+from ohpipeline_jax import codecs
+from ohpipeline_jax.codecs import CodecStreamCorrupt
+from ohpipeline_jax.codecs.opus import decode_opus, split_packet_frames
 
 ORACLE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), ".oracle_build", "opus_oracle")
@@ -78,8 +78,8 @@ def test_packet_frame_splitting():
 
 
 def test_malformed_packets_raise():
-    from ohpipeline_tpu.codecs.opus import _OpusStream
-    from ohpipeline_tpu.codecs.opus_headers import OpusHead
+    from ohpipeline_jax.codecs.opus import _OpusStream
+    from ohpipeline_jax.codecs.opus_headers import OpusHead
     st = _OpusStream(OpusHead(1, 1, 0, 48000, 0, 0))
     with pytest.raises(CodecStreamCorrupt):
         st.decode_packet(b"")
@@ -88,8 +88,8 @@ def test_malformed_packets_raise():
 
 
 def test_plays_through_pipeline(tmp_path):
-    from ohpipeline_tpu.pipeline import AnimatorBatch, PipelineManager
-    from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+    from ohpipeline_jax.pipeline import AnimatorBatch, PipelineManager
+    from ohpipeline_jax.pipeline.manager import PipelineInitParams
     data, ref = _make(seconds=2.0)
     path = tmp_path / "t.opus"
     path.write_bytes(data)
@@ -118,8 +118,8 @@ def test_random_packet_fuzz_no_leaked_exceptions():
     (range-coder concealment, like libopus) or raise
     CodecStreamCorrupt — never IndexError/ValueError from the frame
     splitting (RFC 6716 s3.2 bounds)."""
-    from ohpipeline_tpu.codecs.opus import _OpusStream
-    from ohpipeline_tpu.codecs.opus_headers import OpusHead
+    from ohpipeline_jax.codecs.opus import _OpusStream
+    from ohpipeline_jax.codecs.opus_headers import OpusHead
     rng = np.random.default_rng(0)
     st = _OpusStream(OpusHead(1, 2, 0, 48000, 0, 0))
     decoded = corrupt = 0

@@ -9,9 +9,9 @@ import subprocess
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs.opus import alloc
-from ohpipeline_tpu.codecs.opus.mode import celt_mode
-from ohpipeline_tpu.codecs.opus.range_dec import RangeDecoder
+from ohpipeline_jax.codecs.opus import alloc
+from ohpipeline_jax.codecs.opus.mode import celt_mode
+from ohpipeline_jax.codecs.opus.range_dec import RangeDecoder
 
 PROBE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), ".oracle_build", "celt_probe")

@@ -9,7 +9,7 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs.opus.celt import CeltDecoderState, decode_frame
+from ohpipeline_jax.codecs.opus.celt import CeltDecoderState, decode_frame
 
 PROBE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), ".oracle_build", "celt_probe")

@@ -14,12 +14,12 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs.base import BufferReader
-from ohpipeline_tpu.codecs.opus import split_packet_frames
-from ohpipeline_tpu.codecs.opus.celt import CeltDecoderState, decode_frame
-from ohpipeline_tpu.codecs.opus import celt_jax
-from ohpipeline_tpu.codecs.opus_headers import parse_opus_head
-from ohpipeline_tpu.containers.ogg import OggReader
+from ohpipeline_jax.codecs.base import BufferReader
+from ohpipeline_jax.codecs.opus import split_packet_frames
+from ohpipeline_jax.codecs.opus.celt import CeltDecoderState, decode_frame
+from ohpipeline_jax.codecs.opus import celt_jax
+from ohpipeline_jax.codecs.opus_headers import parse_opus_head
+from ohpipeline_jax.containers.ogg import OggReader
 
 ORACLE = pathlib.Path(__file__).resolve().parent.parent \
     / ".oracle_build" / "opus_oracle"

@@ -6,11 +6,11 @@ import subprocess
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs.base import BufferReader
-from ohpipeline_tpu.codecs.opus_headers import (packet_samples,
+from ohpipeline_jax.codecs.base import BufferReader
+from ohpipeline_jax.codecs.opus_headers import (packet_samples,
                                                 parse_opus_head,
                                                 parse_opus_tags, parse_toc)
-from ohpipeline_tpu.containers.ogg import OggReader
+from ohpipeline_jax.containers.ogg import OggReader
 
 ORACLE = pathlib.Path(__file__).resolve().parent.parent / \
     ".oracle_build" / "opus_oracle"

@@ -16,12 +16,12 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs.base import BufferReader
-from ohpipeline_tpu.codecs.opus import (decode_opus, decode_opus_mp4,
+from ohpipeline_jax.codecs.base import BufferReader
+from ohpipeline_jax.codecs.opus import (decode_opus, decode_opus_mp4,
                                         parse_dops)
-from ohpipeline_tpu.containers.mpeg4 import (find_audio_track, write_m4a,
+from ohpipeline_jax.containers.mpeg4 import (find_audio_track, write_m4a,
                                              write_fragmented_m4a)
-from ohpipeline_tpu.containers.ogg import OggReader
+from ohpipeline_jax.containers.ogg import OggReader
 
 ORACLE = pathlib.Path(__file__).resolve().parent.parent \
     / ".oracle_build" / "opus_oracle"
@@ -53,7 +53,7 @@ def _content(seconds: float, ch: int) -> np.ndarray:
 
 def _ogg_to_parts(data: bytes):
     """(head, audio packets) from an Ogg Opus stream."""
-    from ohpipeline_tpu.codecs.opus_headers import parse_opus_head
+    from ohpipeline_jax.codecs.opus_headers import parse_opus_head
     packets = list(OggReader(BufferReader(data)).packets())
     head = parse_opus_head(packets[0])
     return head, packets[2:]
@@ -131,6 +131,6 @@ def test_dops_parse_and_recognition():
     assert track is not None and track.codec == "Opus"
     assert track.codec_config == body
 
-    from ohpipeline_tpu.codecs import default_registry
+    from ohpipeline_jax.codecs import default_registry
     codec = default_registry.recognise(m4a)
     assert codec is not None and codec.name == "Opus-MP4"

@@ -66,8 +66,8 @@ def _oracle_decode(data: bytes, loss: str, ch: int) -> np.ndarray:
 
 
 def _my_decode(data: bytes, lost: set, fec: set) -> np.ndarray:
-    from ohpipeline_tpu.codecs.opus import _OpusStream, parse_opus_head
-    from ohpipeline_tpu.containers.ogg import OggReader
+    from ohpipeline_jax.codecs.opus import _OpusStream, parse_opus_head
+    from ohpipeline_jax.containers.ogg import OggReader
     pkts = list(OggReader(_R(data)).packets())
     head = parse_opus_head(pkts[0])
     st = _OpusStream(head)
@@ -86,7 +86,7 @@ def _my_decode(data: bytes, lost: set, fec: set) -> np.ndarray:
 
 
 def _fix_active() -> bool:
-    from ohpipeline_tpu.codecs.opus.silk import _have_fix
+    from ohpipeline_jax.codecs.opus.silk import _have_fix
     return _have_fix()
 
 

@@ -8,7 +8,7 @@ import subprocess
 
 import pytest
 
-from ohpipeline_tpu.codecs.opus.range_dec import RangeDecoder
+from ohpipeline_jax.codecs.opus.range_dec import RangeDecoder
 
 PROBE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), ".oracle_build", "celt_probe")

@@ -12,9 +12,9 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs.opus_headers import parse_toc
-from ohpipeline_tpu.codecs.opus.silk import parse_silk_packet
-from ohpipeline_tpu.containers.ogg import OggReader
+from ohpipeline_jax.codecs.opus_headers import parse_toc
+from ohpipeline_jax.codecs.opus.silk import parse_silk_packet
+from ohpipeline_jax.containers.ogg import OggReader
 
 ORACLE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), ".oracle_build", "opus_oracle")
@@ -121,7 +121,7 @@ def test_nlsf_decode_to_stable_lpc():
     """NLSF dequantisation + NLSF2A over a whole reference-encoded
     stream: the spacing constraints must hold and every LPC filter must
     be stable (silk/NLSF_decode.c, NLSF_stabilize.c, NLSF2A.c)."""
-    from ohpipeline_tpu.codecs.opus.silk import (nlsf_decode, nlsf_to_lpc,
+    from ohpipeline_jax.codecs.opus.silk import (nlsf_decode, nlsf_to_lpc,
                                                  tables)
     data = _silk_stream("tone")
     rdr = OggReader(_R(data))
@@ -154,7 +154,7 @@ def test_silk_core_decode_snr():
     the reference decoder's output (compared against the oracle's 48 kHz
     output band-limited and decimated to the internal rate).  The float
     reformulation is SNR-bounded, not bit-exact."""
-    from ohpipeline_tpu.codecs.opus.silk import SilkStreamDecoder
+    from ohpipeline_jax.codecs.opus.silk import SilkStreamDecoder
     data = _silk_stream("tone")
     with tempfile.TemporaryDirectory() as td:
         fin = os.path.join(td, "s.opus")
@@ -199,7 +199,7 @@ def test_silk_decode_48k_snr():
     """Full-rate decode: core decode at the internal rate plus the
     up2_HQ allpass + 12-phase FIR output resampler must track the
     oracle's 48 kHz output directly (silk/resampler.c decode path)."""
-    from ohpipeline_tpu.codecs.opus.silk import SilkStreamDecoder
+    from ohpipeline_jax.codecs.opus.silk import SilkStreamDecoder
     data = _silk_stream("tone")
     with tempfile.TemporaryDirectory() as td:
         fin = os.path.join(td, "s.opus")
@@ -241,7 +241,7 @@ def test_silk_stream_plays_through_codec():
     """Mono SILK-only Ogg Opus stream through CodecOpus (the playback
     path): correct length/rate bookkeeping (RFC 7845 pre-skip +
     granule trim) and SNR vs the oracle's 48 kHz decode."""
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     data = _silk_stream("tone")
     with tempfile.TemporaryDirectory() as td:
         fin = os.path.join(td, "s.opus")
@@ -289,7 +289,7 @@ def test_silk_stereo_decode_snr():
     """Stereo SILK: mid/side cores in one range coder, predictor
     weights + MS_to_LR reconstruction, per-channel resampling — vs the
     oracle's 48 kHz stereo decode (dec_API.c, stereo_MS_to_LR.c)."""
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     data = _silk_stereo_stream()
     with tempfile.TemporaryDirectory() as td:
         fin = os.path.join(td, "s.opus")
@@ -327,7 +327,7 @@ def test_silk_60ms_packets_decode():
     with conditional coding between them (delta gains, delta pitch,
     no per-frame LTP scale — dec_API.c:322-341, decode_indices.c).
     Compared against the oracle's 48 kHz decode."""
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     t = np.arange(48000 * 3) / 48000.0
     x = np.sin(2 * np.pi * 220 * t) \
         * (0.5 + 0.3 * np.sin(2 * np.pi * 3 * t)) * 12000
@@ -367,7 +367,7 @@ def test_silk_stereo_60ms_packets_decode():
     """Stereo 60 ms SILK: per-frame stereo predictors + mid-only flags
     interleaved with conditionally-coded mid/side frames (the side
     channel's frame counter equals the mid's, dec_API.c:344-372)."""
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     t = np.arange(48000 * 3) / 48000.0
     am = 0.5 + 0.3 * np.sin(2 * np.pi * 3 * t)
     x = np.stack([np.sin(2 * np.pi * 220 * t) * am * 11000,
@@ -420,7 +420,7 @@ def test_hybrid_mode_decodes():
     from the SILK-advanced coder at the right bit position with the
     right raw-bit window); the low band carries the SILK float-decode
     tolerance."""
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     t = np.arange(48000 * 3) / 48000.0
     x = np.sin(2 * np.pi * 220 * t) \
         * (0.5 + 0.3 * np.sin(2 * np.pi * 3 * t)) * 9000 \
@@ -448,7 +448,7 @@ def test_hybrid_mode_decodes():
 
 
 def test_hybrid_stereo_decodes():
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     t = np.arange(48000 * 3) / 48000.0
     am = 0.5 + 0.3 * np.sin(2 * np.pi * 3 * t)
     x = np.stack([np.sin(2 * np.pi * 220 * t) * am * 9000
@@ -481,7 +481,7 @@ def test_silk_10ms_packets_decode():
     """10 ms SILK frames: 2 subframes, no NLSF interpolation, the
     10 ms pitch contour codebooks (decoder_set_fs.c:58-70,
     decode_pitch.c:45-66)."""
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     t = np.arange(48000 * 3) / 48000.0
     x = np.sin(2 * np.pi * 220 * t) \
         * (0.5 + 0.3 * np.sin(2 * np.pi * 3 * t)) * 12000
@@ -524,7 +524,7 @@ def test_silk_internal_rates(enc_args, want_bw, min_snr):
     """NB and MB SILK streams: 10-order NLSF codebooks, the 8/12 kHz
     pitch-lag tables and low-bits iCDFs, and the 8/12 -> 48 kHz
     resampler increments (silk/decoder_set_fs.c, resampler.c)."""
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     t = np.arange(48000 * 3) / 48000.0
     x = np.sin(2 * np.pi * 220 * t) \
         * (0.5 + 0.3 * np.sin(2 * np.pi * 3 * t)) * 12000
@@ -563,7 +563,7 @@ def test_mixed_mode_stream_decodes():
     """Auto-mode encoder output switching between modes mid-stream
     (opus_decoder.c handles CELT/SILK/hybrid transitions): the decoder
     must track the oracle across the switch without desync."""
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     t = np.arange(48000 * 4) / 48000.0
     rng = np.random.default_rng(3)
     sp = np.sin(2 * np.pi * 180 * t[:96000]) \
@@ -609,8 +609,8 @@ def test_silk_stream_plays_through_pipeline(tmp_path):
     """Speech (SILK-only) Ogg Opus through the full pipeline to the
     sink — the reference plays these through the same CodecOpus
     adapter path as music streams."""
-    from ohpipeline_tpu.pipeline import AnimatorBatch, PipelineManager
-    from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+    from ohpipeline_jax.pipeline import AnimatorBatch, PipelineManager
+    from ohpipeline_jax.pipeline.manager import PipelineInitParams
     data = _silk_stream("tone")
     path = tmp_path / "speech.opus"
     path.write_bytes(data)
@@ -641,7 +641,7 @@ def test_silk_stream_plays_through_pipeline(tmp_path):
 
 
 def _fix_active() -> bool:
-    from ohpipeline_tpu.codecs.opus.silk import _have_fix
+    from ohpipeline_jax.codecs.opus.silk import _have_fix
     return _have_fix()
 
 
@@ -671,13 +671,13 @@ def _encode_decode_oracle(x: np.ndarray, enc_args: tuple) -> tuple:
 ])
 def test_silk_fixed_point_bit_exact(enc_args, channels):
     """The native fixed-point SILK pipeline (decode_core, NLSF2A,
-    resampler, stereo unmix — ohpipeline_tpu/native/silk_core.cc) must
+    resampler, stereo unmix — ohpipeline_jax/native/silk_core.cc) must
     reproduce the reference decoder's 48 kHz output bit-for-bit across
     bandwidths, frame sizes and channel modes
     (thirdparty/opus-1.5.2/silk/decode_core.c et al.)."""
     if not _fix_active():
         pytest.skip("native silk core unavailable")
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     t = np.arange(48000 * 2) / 48000.0
     rng = np.random.default_rng(11)
     base = (np.sin(2 * np.pi * 220 * t)
@@ -706,7 +706,7 @@ def test_silk_internal_rate_bit_exact_vs_probe():
     one-sample output buffering."""
     if not _fix_active() or not os.path.exists(SILK_PROBE):
         pytest.skip("native silk core or probe unavailable")
-    from ohpipeline_tpu.codecs.opus.silk import (SilkStreamDecoder,
+    from ohpipeline_jax.codecs.opus.silk import (SilkStreamDecoder,
                                                  parse_silk_packet)
     for kind in ("tone", "pulsed_noise"):
         data = _silk_stream(kind)
@@ -748,7 +748,7 @@ def test_switch_heavy_stream_per_packet_bound():
         subprocess.run([ORACLE, "decode", fout, fo], check=True,
                        capture_output=True)
         ref = np.fromfile(fo, np.int16).astype(np.float64)
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     _info, mine = decode_opus(data)
     mine = mine.astype(np.float64)[0]
     n = min(len(mine), len(ref))
@@ -789,7 +789,7 @@ def test_silk_mb_10ms_shell_block_roundup():
     tocs = [parse_toc(p) for i, p in enumerate(rdr.packets()) if i >= 2]
     assert {t_.frame_ms for t_ in tocs} == {10}
     assert "mb" in {t_.bandwidth for t_ in tocs}
-    from ohpipeline_tpu.codecs.opus import decode_opus
+    from ohpipeline_jax.codecs.opus import decode_opus
     _info, mine = decode_opus(data)
     mine = mine.astype(np.float64)[0]
     n = min(len(mine), len(ref))

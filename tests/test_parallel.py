@@ -3,16 +3,16 @@
 import numpy as np
 import jax
 
-from ohpipeline_tpu import parallel
-from ohpipeline_tpu.core import events as ev
-from ohpipeline_tpu.core.streaminfo import PcmStreamInfo
-from ohpipeline_tpu.pipeline.branch import Brancher, IciBranch
+from ohpipeline_jax import parallel
+from ohpipeline_jax.core import events as ev
+from ohpipeline_jax.core.streaminfo import PcmStreamInfo
+from ohpipeline_jax.pipeline.branch import Brancher, IciBranch
 
 
 class TestShardedStep:
     def test_mesh_shape(self):
         mesh = parallel.make_mesh(8)
-        assert mesh.devices.size == 8 and mesh.axis_names == ("dp", "sp")
+        assert mesh.devices.size == 8 and mesh.axis_names == ("dp",)
 
     def test_full_step_all_stages(self):
         mesh = parallel.make_mesh(8)
@@ -37,7 +37,7 @@ class TestShardedStep:
         # the meters collective replicates across every device
         assert len(set(d.device for d in meters.addressable_shards)) == 8
         # vorbis IMDCT matches the single-device reference op
-        from ohpipeline_tpu.codecs.vorbis.synthesis import imdct_many
+        from ohpipeline_jax.codecs.vorbis.synthesis import imdct_many
         ref = imdct_many(v_spec, 2048)
         np.testing.assert_allclose(np.asarray(vtime), ref, atol=1e-3)
 
@@ -105,7 +105,7 @@ class TestIciBranch:
     """Multiroom distribution THROUGH the pipeline: a Brancher tee feeds
     IciBranch, whose fan-out collective must land the identical master
     mix on every device of the mesh (the OhmSender semantics of
-    Av/Songcast over ICI instead of UDP)."""
+    Av/Songcast over a mesh collective instead of UDP)."""
 
     def test_pipeline_multiroom_fanout(self):
         mesh = parallel.make_mesh(8)

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ohpipeline_tpu.ops import pcm
+from ohpipeline_jax.ops import pcm
 
 
 def test_unity_gain_is_bit_exact(rng):

@@ -6,8 +6,8 @@ import json
 
 import pytest
 
-from ohpipeline_tpu.av.config import RamStore
-from ohpipeline_tpu.av.pins import (ID_EMPTY, Pin, PinIdNotFound,
+from ohpipeline_jax.av.config import RamStore
+from ohpipeline_jax.av.pins import (ID_EMPTY, Pin, PinIdNotFound,
                                     PinIndexOutOfRange,
                                     PinModeNotSupported, PinNothingToPlay,
                                     PinsManager, PinUriError, PinInvoker)
@@ -106,7 +106,7 @@ class TestPinsManagerContract:
         assert pins2.id_array()[1] > old_id    # provider resumes past max
 
     def test_nothing_to_play_from_catalogue_invoker(self):
-        from ohpipeline_tpu.av.pins import ServiceCatalogPinInvoker
+        from ohpipeline_jax.av.pins import ServiceCatalogPinInvoker
         inv = ServiceCatalogPinInvoker("svc", lambda k, i: [], None, None)
         with pytest.raises(PinNothingToPlay):
             inv.invoke(Pin(mode="svc", uri="svc://album/1"))
@@ -114,8 +114,8 @@ class TestPinsManagerContract:
 
 @pytest.fixture
 def media_player():
-    from ohpipeline_tpu.av import MediaPlayer, MediaPlayerInitParams
-    from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+    from ohpipeline_jax.av import MediaPlayer, MediaPlayerInitParams
+    from ohpipeline_jax.pipeline.manager import PipelineInitParams
     pp = PipelineInitParams()
     pp.gorge_jiffies = 0
     pp.threaded_starvation_ramper = False
@@ -127,8 +127,8 @@ def media_player():
 
 class TestOdpPinsService:
     def test_full_surface_and_error_codes(self, media_player):
-        from ohpipeline_tpu.net.odp import OdpClient, OdpError, OdpServer
-        from ohpipeline_tpu.net.providers import make_device
+        from ohpipeline_jax.net.odp import OdpClient, OdpError, OdpServer
+        from ohpipeline_jax.net.providers import make_device
         server = OdpServer()
         server.add_device(make_device(media_player))
         client = OdpClient("127.0.0.1", server.port)
@@ -169,7 +169,7 @@ class TestOdpPinsService:
             server.close()
 
     def test_id_array_evented(self, media_player):
-        from ohpipeline_tpu.net.providers import make_pins_service
+        from ohpipeline_jax.net.providers import make_pins_service
         svc = make_pins_service(media_player)
         events = []
         svc._subscribe(lambda name, props: events.append(props))

@@ -8,9 +8,9 @@ import time
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.core import events as ev
-from ohpipeline_tpu.pipeline import AnimatorBatch, PipelineManager
-from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+from ohpipeline_jax.core import events as ev
+from ohpipeline_jax.pipeline import AnimatorBatch, PipelineManager
+from ohpipeline_jax.pipeline.manager import PipelineInitParams
 
 
 class Collector:
@@ -61,7 +61,7 @@ def test_tone_uri_end_to_end():
 
 
 def test_file_wav_end_to_end(tmp_path):
-    from ohpipeline_tpu.codecs.wav import write_wav
+    from ohpipeline_jax.codecs.wav import write_wav
     t = np.arange(44100) / 44100
     tone = np.tile(np.rint(np.sin(2 * np.pi * 997 * t) * 30000)
                    .astype(np.int32), (2, 1))
@@ -76,7 +76,7 @@ def test_file_wav_end_to_end(tmp_path):
 
 
 def test_file_flac_end_to_end(tmp_path):
-    from ohpipeline_tpu.codecs import flac
+    from ohpipeline_jax.codecs import flac
     t = np.arange(44100) / 44100
     tone = np.stack([np.rint(np.sin(2 * np.pi * 997 * t) * 28000),
                      np.rint(np.sin(2 * np.pi * 1009 * t) * 28000)]

@@ -5,12 +5,12 @@ asserted."""
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.core import events as ev
-from ohpipeline_tpu.core.jiffies import Jiffies
-from ohpipeline_tpu.core.ramp import RAMP_MAX, RAMP_MIN
-from ohpipeline_tpu.core.streaminfo import PcmStreamInfo
-from ohpipeline_tpu.pipeline import control, elements
-from ohpipeline_tpu.pipeline.reservoirs import (DecodedAudioReservoir,
+from ohpipeline_jax.core import events as ev
+from ohpipeline_jax.core.jiffies import Jiffies
+from ohpipeline_jax.core.ramp import RAMP_MAX, RAMP_MIN
+from ohpipeline_jax.core.streaminfo import PcmStreamInfo
+from ohpipeline_jax.pipeline import control, elements
+from ohpipeline_jax.pipeline.reservoirs import (DecodedAudioReservoir,
                                                 EncodedAudioReservoir)
 
 INFO = PcmStreamInfo(44100, 16, 2)
@@ -252,7 +252,7 @@ class TestAggregator:
 
 class TestValidators:
     def test_ramp_validator_catches_discontinuity(self):
-        from ohpipeline_tpu.core.ramp import Ramp, RampDirection
+        from ohpipeline_jax.core.ramp import Ramp, RampDirection
         a1 = audio().with_ramp(Ramp(RAMP_MAX, 8000, RampDirection.DOWN, True))
         a2 = audio().with_ramp(Ramp(4000, 0, RampDirection.DOWN, True))
         up = ScriptedUpstream([stream(), a1, a2])
@@ -301,7 +301,7 @@ class TestReservoirs:
 
 class TestStarvation:
     def test_flywheel_extrapolates_sine(self):
-        from ohpipeline_tpu.pipeline.starvation import FlywheelRamper
+        from ohpipeline_jax.pipeline.starvation import FlywheelRamper
         t = np.arange(4410) / 44100
         hist = np.sin(2 * np.pi * 1000 * t) * 10000
         fw = FlywheelRamper()
@@ -312,7 +312,7 @@ class TestStarvation:
         assert err < 500, err
 
     def test_starvation_emits_flywheel_then_silence(self):
-        from ohpipeline_tpu.pipeline.starvation import StarvationRamper
+        from ohpipeline_jax.pipeline.starvation import StarvationRamper
 
         up = ScriptedUpstream([stream(), audio(4410)])
 

@@ -6,10 +6,10 @@ import time
 
 import numpy as np
 
-from ohpipeline_tpu.core import events as ev
-from ohpipeline_tpu.core.jiffies import Jiffies
-from ohpipeline_tpu.core.streaminfo import PcmStreamInfo
-from ohpipeline_tpu.pipeline import branch, latency
+from ohpipeline_jax.core import events as ev
+from ohpipeline_jax.core.jiffies import Jiffies
+from ohpipeline_jax.core.streaminfo import PcmStreamInfo
+from ohpipeline_jax.pipeline import branch, latency
 
 INFO = PcmStreamInfo(44100, 16, 2)
 
@@ -288,7 +288,7 @@ class TestAirplayReporter:
 
 
 def test_assembled_chain_has_all_elements():
-    from ohpipeline_tpu.pipeline.manager import Pipeline, PipelineInitParams
+    from ohpipeline_jax.pipeline.manager import Pipeline, PipelineInitParams
     p = PipelineInitParams()
     p.threaded_starvation_ramper = False
     pipe = Pipeline(p)

@@ -28,10 +28,10 @@ import time
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.core import events as ev
-from ohpipeline_tpu.pipeline import PipelineManager
-from ohpipeline_tpu.pipeline.filler import UriProvider
-from ohpipeline_tpu.pipeline.manager import (PipelineInitParams,
+from ohpipeline_jax.core import events as ev
+from ohpipeline_jax.pipeline import PipelineManager
+from ohpipeline_jax.pipeline.filler import UriProvider
+from ohpipeline_jax.pipeline.manager import (PipelineInitParams,
                                              SupportElements)
 
 

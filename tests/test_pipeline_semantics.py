@@ -7,12 +7,12 @@ import struct
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.core import events as ev
-from ohpipeline_tpu.core.jiffies import Jiffies
-from ohpipeline_tpu.core.streaminfo import AudioFormat, PcmStreamInfo
-from ohpipeline_tpu.pipeline import AnimatorBatch, PipelineManager, control
-from ohpipeline_tpu.pipeline.filler import IdManager, UriProvider
-from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+from ohpipeline_jax.core import events as ev
+from ohpipeline_jax.core.jiffies import Jiffies
+from ohpipeline_jax.core.streaminfo import AudioFormat, PcmStreamInfo
+from ohpipeline_jax.pipeline import AnimatorBatch, PipelineManager, control
+from ohpipeline_jax.pipeline.filler import IdManager, UriProvider
+from ohpipeline_jax.pipeline.manager import PipelineInitParams
 
 INFO = PcmStreamInfo(44100, 16, 2)
 
@@ -86,7 +86,7 @@ class TestStopperMidRampReversal:
     from kMin (ramp discontinuity at the stopper's validator)."""
 
     def make(self, n_audio=16, ramp_mult=4):
-        from ohpipeline_tpu.core.ramp import RampDirection
+        from ohpipeline_jax.core.ramp import RampDirection
         aj = audio().jiffies
         up = ScriptedUpstream([stream(1)] + [audio() for _ in
                                              range(n_audio)])
@@ -95,7 +95,7 @@ class TestStopperMidRampReversal:
         return s, RampDirection
 
     def test_play_during_pause_ramp_carries_level(self):
-        from ohpipeline_tpu.core.ramp import RAMP_MAX
+        from ohpipeline_jax.core.ramp import RAMP_MAX
         s, D = self.make()
         s.pause()
         e1 = s.pull()
@@ -191,7 +191,7 @@ class TestPrevNext:
             mgr.quit()
 
     def test_playlist_provider_prev_track(self):
-        from ohpipeline_tpu.av.sources import (TrackDatabase,
+        from ohpipeline_jax.av.sources import (TrackDatabase,
                                                UriProviderPlaylist)
         db = TrackDatabase()
         a = db.insert(0, "file:///a.wav", "")

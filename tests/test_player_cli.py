@@ -28,7 +28,7 @@ def run_player(uri: str, out: pathlib.Path) -> str:
 
 
 def read_wav(path: pathlib.Path) -> np.ndarray:
-    from ohpipeline_tpu.codecs.wav import parse_wav
+    from ohpipeline_jax.codecs.wav import parse_wav
     info, pcm = parse_wav(path.read_bytes())
     return pcm
 

@@ -3,9 +3,9 @@ episode browse with fake HTTP (reference TestPins-style)."""
 
 import json
 
-from ohpipeline_tpu.av.config import RamStore
-from ohpipeline_tpu.av.pins import Pin
-from ohpipeline_tpu.av.podcasts import (ITunesLatestPinInvoker,
+from ohpipeline_jax.av.config import RamStore
+from ohpipeline_jax.av.pins import Pin
+from ohpipeline_jax.av.podcasts import (ITunesLatestPinInvoker,
                                         ITunesListPinInvoker,
                                         ITunesPodcasts, ListenedDates,
                                         Podcast, TuneInPodcastPinInvoker,
@@ -46,7 +46,7 @@ def fake_get(url: str) -> bytes:
 
 class FakePlaylistSource:
     def __init__(self):
-        from ohpipeline_tpu.av.sources import TrackDatabase
+        from ohpipeline_jax.av.sources import TrackDatabase
         self.db = TrackDatabase()
         self.provider = self
         self.shuffle = None

@@ -8,8 +8,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import pytest
 
-from ohpipeline_tpu.protocols.base import ProtocolStreamResult
-from ohpipeline_tpu.protocols.http import ProtocolHttp
+from ohpipeline_jax.protocols.base import ProtocolStreamResult
+from ohpipeline_jax.protocols.http import ProtocolHttp
 
 BODY = bytes(range(256)) * 64          # 16 KiB
 

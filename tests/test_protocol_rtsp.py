@@ -10,8 +10,8 @@ import threading
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.protocols.base import ProtocolStreamResult
-from ohpipeline_tpu.protocols.rtsp import (ProtocolRtsp, parse_sdp,
+from ohpipeline_jax.protocols.base import ProtocolStreamResult
+from ohpipeline_jax.protocols.rtsp import (ProtocolRtsp, parse_sdp,
                                            strip_rtp)
 
 AAC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets",
@@ -221,8 +221,8 @@ def test_try_stop_flushes():
 
 
 def test_plays_adts_through_pipeline():
-    from ohpipeline_tpu.pipeline import AnimatorBatch, PipelineManager
-    from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+    from ohpipeline_jax.pipeline import AnimatorBatch, PipelineManager
+    from ohpipeline_jax.pipeline.manager import PipelineInitParams
     payload = open(AAC, "rb").read()
     srv = ScriptedRtspServer(payload)
     srv.start()

@@ -2,8 +2,8 @@
 
 import pytest
 
-from ohpipeline_tpu.protocols import dash as D
-from ohpipeline_tpu.protocols.base import ProtocolStreamResult
+from ohpipeline_jax.protocols import dash as D
+from ohpipeline_jax.protocols.base import ProtocolStreamResult
 
 
 MPD = """<?xml version="1.0"?>

@@ -4,10 +4,10 @@
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.core import events as ev
-from ohpipeline_tpu.protocols import hls as HLS
-from ohpipeline_tpu.protocols import playlists as PL
-from ohpipeline_tpu.protocols.base import ProtocolStreamResult
+from ohpipeline_jax.core import events as ev
+from ohpipeline_jax.protocols import hls as HLS
+from ohpipeline_jax.protocols import playlists as PL
+from ohpipeline_jax.protocols.base import ProtocolStreamResult
 
 
 class CollectingSupply:

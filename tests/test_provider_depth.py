@@ -8,14 +8,14 @@ import time
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.net.odp import OdpClient, OdpError, OdpServer
-from ohpipeline_tpu.net.providers import make_device
+from ohpipeline_jax.net.odp import OdpClient, OdpError, OdpServer
+from ohpipeline_jax.net.providers import make_device
 
 
 @pytest.fixture
 def media_player():
-    from ohpipeline_tpu.av import MediaPlayer, MediaPlayerInitParams
-    from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+    from ohpipeline_jax.av import MediaPlayer, MediaPlayerInitParams
+    from ohpipeline_jax.pipeline.manager import PipelineInitParams
     pp = PipelineInitParams()
     pp.gorge_jiffies = 0
     pp.threaded_starvation_ramper = False
@@ -36,7 +36,7 @@ def client_server(media_player):
 
 
 def drain(mp):
-    from ohpipeline_tpu.pipeline import AnimatorBatch
+    from ohpipeline_jax.pipeline import AnimatorBatch
     chunks = []
     AnimatorBatch(mp.pipeline.pipeline.predriver,
                   lambda s, i: chunks.append(s), use_device=False).run()
@@ -50,7 +50,7 @@ class TestProductDepth:
         man = client.invoke("Product", "Manufacturer")
         assert man["Name"] == "OpenHome"
         model = client.invoke("Product", "Model")
-        assert model["Name"] == "ohpipeline-tpu"
+        assert model["Name"] == "ohpipeline-jax"
         prod = client.invoke("Product", "Product")
         assert prod["Room"] == "Main Room"
         attrs = client.invoke("Product", "Attributes")["value"]

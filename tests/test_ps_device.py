@@ -39,12 +39,12 @@ def _v2_stream(secs: float = 2.5) -> bytes:
 
 
 def test_ps_device_matches_numpy():
-    from ohpipeline_tpu.codecs.aac import (_StreamState,
+    from ohpipeline_jax.codecs.aac import (_StreamState,
                                            decode_frames_float)
-    from ohpipeline_tpu.codecs.aac import bitstream as BS
-    from ohpipeline_tpu.codecs.aac.sbr import SbrDecoder
-    from ohpipeline_tpu.codecs.aac.sbr_jax import SbrPsDeviceRunner
-    from ohpipeline_tpu.codecs.flac.bitreader import BitReader
+    from ohpipeline_jax.codecs.aac import bitstream as BS
+    from ohpipeline_jax.codecs.aac.sbr import SbrDecoder
+    from ohpipeline_jax.codecs.aac.sbr_jax import SbrPsDeviceRunner
+    from ohpipeline_jax.codecs.flac.bitreader import BitReader
     data = _v2_stream()
     frames = []
     pos = 0
@@ -105,8 +105,8 @@ def test_ps_device_matches_numpy():
 def test_codec_uses_device_ps_path():
     """CodecAacAdts on a v2 stream must take the batched device route
     (SbrPsDeviceRunner attached), not silently fall back to numpy."""
-    from ohpipeline_tpu.codecs.aac import CodecAacAdts
-    from ohpipeline_tpu.codecs.base import EndOfStream
+    from ohpipeline_jax.codecs.aac import CodecAacAdts
+    from ohpipeline_jax.codecs.base import EndOfStream
 
     class _Rdr:
         def __init__(self, b):

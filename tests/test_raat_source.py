@@ -9,15 +9,15 @@ import time
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.av.config import ConfigManager
-from ohpipeline_tpu.av.raat import (DSD_BLOCK_BYTES, DSD_SILENCE,
+from ohpipeline_jax.av.config import ConfigManager
+from ohpipeline_jax.av.raat import (DSD_BLOCK_BYTES, DSD_SILENCE,
                                     ProtocolRaat, RaatStreamFormat,
                                     RaatVolumeBridge, SourceRaat)
-from ohpipeline_tpu.av.volume import VolumeManager, VolumeProfile
-from ohpipeline_tpu.core.streaminfo import AudioFormat
-from ohpipeline_tpu.ops.pcm import pack_pcm_bytes
-from ohpipeline_tpu.pipeline import AnimatorBatch, PipelineManager
-from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+from ohpipeline_jax.av.volume import VolumeManager, VolumeProfile
+from ohpipeline_jax.core.streaminfo import AudioFormat
+from ohpipeline_jax.ops.pcm import pack_pcm_bytes
+from ohpipeline_jax.pipeline import AnimatorBatch, PipelineManager
+from ohpipeline_jax.pipeline.manager import PipelineInitParams
 
 
 class MockRaatPeer:

@@ -10,7 +10,7 @@ import time
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.net import raop as R
+from ohpipeline_jax.net import raop as R
 
 ALAC_ORACLE = pathlib.Path(__file__).resolve().parent.parent / \
     ".oracle_build" / "alac_oracle"
@@ -81,7 +81,7 @@ class TestRaopSession:
         from cryptography.hazmat.primitives.ciphers import (Cipher,
                                                             algorithms,
                                                             modes)
-        from ohpipeline_tpu.codecs.alac import AlacConfig
+        from ohpipeline_jax.codecs.alac import AlacConfig
         x, cookie, pkts = self._alac_packets(tmp_path)
         cfg = AlacConfig.parse(cookie)
         got = []

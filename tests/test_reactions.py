@@ -4,7 +4,7 @@ and the ODP Reaction service surface."""
 
 import pytest
 
-from ohpipeline_tpu.av.reactions import (ERR_NO_CURRENT_TRACK,
+from ohpipeline_jax.av.reactions import (ERR_NO_CURRENT_TRACK,
                                          ERR_TRACK_NOT_REACTABLE,
                                          FavouritesReactionHandler,
                                          ReactionError, ReactionRegistry)
@@ -89,10 +89,10 @@ def test_state_follows_track_changes():
 
 
 def test_odp_reaction_service(tmp_path):
-    from ohpipeline_tpu.av.media_player import (MediaPlayer,
+    from ohpipeline_jax.av.media_player import (MediaPlayer,
                                                 MediaPlayerInitParams)
-    from ohpipeline_tpu.net.providers import make_reaction_service
-    from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+    from ohpipeline_jax.net.providers import make_reaction_service
+    from ohpipeline_jax.pipeline.manager import PipelineInitParams
     pp = PipelineInitParams()
     pp.gorge_jiffies = 0
     pp.threaded_starvation_ramper = False

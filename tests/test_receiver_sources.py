@@ -7,10 +7,10 @@ import time
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.av.receiver_sources import (SourceRaop, SourceReceiver,
+from ohpipeline_jax.av.receiver_sources import (SourceRaop, SourceReceiver,
                                                 SourceScd, SourceUpnpAv)
-from ohpipeline_tpu.pipeline import AnimatorBatch, PipelineManager
-from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+from ohpipeline_jax.pipeline import AnimatorBatch, PipelineManager
+from ohpipeline_jax.pipeline.manager import PipelineInitParams
 
 
 def make_manager():
@@ -57,7 +57,7 @@ def tone(n=1024):
 
 class TestSongcastSource:
     def test_ohm_loopback_to_pipeline(self):
-        from ohpipeline_tpu.net.songcast import OhmSender
+        from ohpipeline_jax.net.songcast import OhmSender
         mgr = make_manager()
         sender = OhmSender(multicast=False)
         sender.start()
@@ -83,7 +83,7 @@ class TestSongcastSource:
 
 class TestScdSource:
     def test_scd_loopback(self):
-        from ohpipeline_tpu.net.scd import ScdFormat, ScdSender
+        from ohpipeline_jax.net.scd import ScdFormat, ScdSender
         mgr = make_manager()
         src = SourceScd(mgr)
         sender = ScdSender()

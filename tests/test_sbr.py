@@ -16,11 +16,11 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs.aac import (CodecAacAdts, _StreamState,
+from ohpipeline_jax.codecs.aac import (CodecAacAdts, _StreamState,
                                        bitstream as BS,
                                        decode_frames_float)
-from ohpipeline_tpu.codecs.aac.sbr import SbrDecoder
-from ohpipeline_tpu.codecs.base import EndOfStream, StreamReader
+from ohpipeline_jax.codecs.aac.sbr import SbrDecoder
+from ohpipeline_jax.codecs.base import EndOfStream, StreamReader
 
 ORACLE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), ".oracle_build", "aac_oracle")
@@ -237,10 +237,10 @@ def test_he_aac_in_mp4(explicit):
     payload probe) and explicit (AOT-5 AudioSpecificConfig hierarchy,
     tpdec_asc.cpp) signalling must both decode — identically to the
     ADTS path, which shares the SBR decoder."""
-    from ohpipeline_tpu.codecs.aac import (CodecAacMp4, bitstream as BS2,
+    from ohpipeline_jax.codecs.aac import (CodecAacMp4, bitstream as BS2,
                                            decode_adts)
-    from ohpipeline_tpu.codecs.base import BufferReader, EndOfStream
-    from ohpipeline_tpu.containers.mpeg4 import write_m4a
+    from ohpipeline_jax.codecs.base import BufferReader, EndOfStream
+    from ohpipeline_jax.containers.mpeg4 import write_m4a
     data, _ref = _encode_he(_content("mix", secs=1.5))
     frames = []
     pos = 0
@@ -317,7 +317,7 @@ def test_he_aac_v2_stereo_reconstruction():
     assert info.codec_name == "HE-AAC v2"
     assert info.sample_rate == 44100 and info.num_channels == 2
     outs = []
-    from ohpipeline_tpu.codecs.base import EndOfStream as EOS
+    from ohpipeline_jax.codecs.base import EndOfStream as EOS
     while True:
         try:
             outs.append(c.process(rd).resolve())
@@ -355,7 +355,7 @@ def test_ps_payloads_parse():
     10/20/34-bin IID/ICC huffman runs, IPD/OPD skip) — hundreds of
     blocks through huffman-coded variable-length data is a strong
     structural check of the symbol schedule."""
-    from ohpipeline_tpu.codecs.aac.sbr import SbrDecoder
+    from ohpipeline_jax.codecs.aac.sbr import SbrDecoder
     x = _content("mix", 2.5)
     pcm = np.stack([x, (x * 0.7).astype(np.int16)]).T.copy()
     with tempfile.TemporaryDirectory() as td:
@@ -370,8 +370,8 @@ def test_ps_payloads_parse():
     info = c.stream_initialise(_MemReader(data))
     assert info.codec_name == "HE-AAC v2"
     # walk the frames, count parsed PS blocks
-    from ohpipeline_tpu.codecs.aac import bitstream as BS2
-    from ohpipeline_tpu.codecs.flac.bitreader import BitReader
+    from ohpipeline_jax.codecs.aac import bitstream as BS2
+    from ohpipeline_jax.codecs.flac.bitreader import BitReader
     dec = SbrDecoder(info.sample_rate // 2)
     pos = 0
     n_ps = 0
@@ -409,11 +409,11 @@ def test_ps_index_delta_decode():
     (psbitdec.cpp deltaDecodeArray/DecodePs): absolute indices stay in
     the quantiser ranges across frames and envelopes, the FIX-0-env
     hold path works, and the 34->20 map stays bounded."""
-    from ohpipeline_tpu.codecs.aac import bitstream as BS2
-    from ohpipeline_tpu.codecs.aac.sbr import (SbrDecoder,
+    from ohpipeline_jax.codecs.aac import bitstream as BS2
+    from ohpipeline_jax.codecs.aac.sbr import (SbrDecoder,
                                                _ps_map34_to_20,
                                                decode_ps_indices)
-    from ohpipeline_tpu.codecs.flac.bitreader import BitReader
+    from ohpipeline_jax.codecs.flac.bitreader import BitReader
     t = np.arange(int(44100 * 2.5)) / 44100.0
     pan = np.sin(2 * np.pi * 0.9 * t) * 0.5 + 0.5
     base = (np.sin(2 * np.pi * 700 * t) * 9000
@@ -467,7 +467,7 @@ def test_ps_mixing_matrices():
     """Type-A rotation dequant (psdec.cpp): identity at centre,
     total-energy preservation (c_l^2 + c_r^2 = 2) at every IID/ICC
     combination, hard pan kills the opposite channel."""
-    from ohpipeline_tpu.codecs.aac.sbr import ps_mixing_matrices
+    from ohpipeline_jax.codecs.aac.sbr import ps_mixing_matrices
     h11, h12, h21, h22 = ps_mixing_matrices([0] * 20, [0] * 20, False)
     assert np.allclose(h11, 1) and np.allclose(h12, 1)
     assert np.allclose(h21, 0) and np.allclose(h22, 0)
@@ -487,7 +487,7 @@ def test_ps_hybrid_filterbank_perfect_reconstruction():
     """The PS hybrid analysis/synthesis pair (psdec_hybrid.cpp
     documented 13-tap designs) must reconstruct any QMF signal exactly
     with the 6-slot group delay, including across chunked calls."""
-    from ohpipeline_tpu.codecs.aac.sbr import PsHybrid
+    from ohpipeline_jax.codecs.aac.sbr import PsHybrid
     rng = np.random.default_rng(1)
     X = rng.standard_normal((96, 64)) + 1j * rng.standard_normal((96, 64))
     h = PsHybrid()
@@ -504,10 +504,10 @@ def test_he_aac_v2_in_mp4():
     """HE-AAC v2 inside M4A: the AOT-29 AudioSpecificConfig hierarchy
     plus PS detection must produce stereo output identical to the ADTS
     path's."""
-    from ohpipeline_tpu.codecs.aac import (CodecAacMp4, bitstream as BS2,
+    from ohpipeline_jax.codecs.aac import (CodecAacMp4, bitstream as BS2,
                                            decode_adts)
-    from ohpipeline_tpu.codecs.base import BufferReader, EndOfStream
-    from ohpipeline_tpu.containers.mpeg4 import write_m4a
+    from ohpipeline_jax.codecs.base import BufferReader, EndOfStream
+    from ohpipeline_jax.containers.mpeg4 import write_m4a
     t = np.arange(int(44100 * 1.5)) / 44100.0
     pan = np.sin(2 * np.pi * 0.9 * t) * 0.5 + 0.5
     base = np.sin(2 * np.pi * 700 * t) * 9000

@@ -52,8 +52,8 @@ def _encode_he(x: np.ndarray, bitrate: int = 48000) -> bytes:
 
 def _parse_he(data: bytes, max_frames: int = 200):
     """ADTS HE-AAC -> (core_rate, channels, list of parsed frames)."""
-    from ohpipeline_tpu.codecs.aac import bitstream as BS
-    from ohpipeline_tpu.codecs.flac.bitreader import BitReader
+    from ohpipeline_jax.codecs.aac import bitstream as BS
+    from ohpipeline_jax.codecs.flac.bitreader import BitReader
     frames = []
     pos = 0
     hdr0 = None
@@ -75,9 +75,9 @@ def test_core_imdct_device_matches_host():
     back for numpy-fallback resync."""
     import jax.numpy as jnp
 
-    from ohpipeline_tpu.codecs.aac import (_StreamState,
+    from ohpipeline_jax.codecs.aac import (_StreamState,
                                            _core_float_from_specs)
-    from ohpipeline_tpu.codecs.aac.sbr_jax import core_imdct_device
+    from ohpipeline_jax.codecs.aac.sbr_jax import core_imdct_device
     rng = np.random.default_rng(5)
     state = _StreamState(1)
     ov_dev = np.zeros(1024, np.float32)
@@ -109,11 +109,11 @@ def test_fused_core_overlap_resync():
     """After spec-mode device groups, _sync_core_overlap must hand the
     host _StreamState the same overlap tail the host float path would
     have produced — the continuity contract for numpy-fallback groups."""
-    from ohpipeline_tpu.codecs.aac import (_StreamState,
+    from ohpipeline_jax.codecs.aac import (_StreamState,
                                            _sbr_decode_frames_lazy,
                                            _sync_core_overlap,
                                            decode_frames_float_batched)
-    from ohpipeline_tpu.codecs.aac.sbr import SbrDecoder
+    from ohpipeline_jax.codecs.aac.sbr import SbrDecoder
     data = _encode_he(_content("mix", 1.5))
     hdr, frames = _parse_he(data)
     sbr = SbrDecoder(hdr.sample_rate)
@@ -137,10 +137,10 @@ def test_fused_core_overlap_resync():
 
 @pytest.mark.parametrize("kind", ["mix", "noise", "transient"])
 def test_sbr_device_matches_numpy(kind):
-    from ohpipeline_tpu.codecs.aac import (_StreamState,
+    from ohpipeline_jax.codecs.aac import (_StreamState,
                                            decode_frames_float)
-    from ohpipeline_tpu.codecs.aac.sbr import SbrDecoder
-    from ohpipeline_tpu.codecs.aac.sbr_jax import SbrDeviceRunner
+    from ohpipeline_jax.codecs.aac.sbr import SbrDecoder
+    from ohpipeline_jax.codecs.aac.sbr_jax import SbrDeviceRunner
     data = _encode_he(_content(kind))
     hdr, frames = _parse_he(data)
     nch = hdr.channels

@@ -42,7 +42,7 @@ def _ensure_instr():
 def test_fix_alphas_bit_exact_vs_fdk():
     if not _ensure_instr():
         pytest.skip("instrumented oracle not buildable")
-    from ohpipeline_tpu.codecs.aac.sbr_fixlpc import fix_alphas_bands
+    from ohpipeline_jax.codecs.aac.sbr_fixlpc import fix_alphas_bands
     rng = np.random.default_rng(7)
     x = np.clip(rng.standard_normal(int(44100 * 1.2)) * 4000,
                 -32000, 32000).astype(np.int16)

@@ -14,9 +14,9 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import native
-from ohpipeline_tpu.codecs.aac import bitstream as BS
-from ohpipeline_tpu.codecs.aac.sbr import SbrDecoder, SbrError
+from ohpipeline_jax import native
+from ohpipeline_jax.codecs.aac import bitstream as BS
+from ohpipeline_jax.codecs.aac.sbr import SbrDecoder, SbrError
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ORACLE = os.path.join(HERE, "..", ".oracle_build", "aac_oracle")
@@ -202,7 +202,7 @@ def test_random_payload_low_level_agreement():
     rejects.  Also regression-guards the bs_pointer validation (an
     out-of-spec pointer used to IndexError in Python and read stale
     t_env entries natively; both now reject like fdk extractFrameInfo)."""
-    from ohpipeline_tpu.codecs.aac import sbr as SBR
+    from ohpipeline_jax.codecs.aac import sbr as SBR
     data = _encode_he(15, 2, "5")
     dec = SbrDecoder(22050)
     pls = _payloads(data, 2)

@@ -8,10 +8,10 @@ import urllib.parse
 
 import pytest
 
-from ohpipeline_tpu.av.credentials import Credentials
-from ohpipeline_tpu.av.misc import didl_lite
-from ohpipeline_tpu.av.pins import Pin, qobuz_pin_invoker, tidal_pin_invoker
-from ohpipeline_tpu.av.services import (QobuzCatalogue, QobuzService,
+from ohpipeline_jax.av.credentials import Credentials
+from ohpipeline_jax.av.misc import didl_lite
+from ohpipeline_jax.av.pins import Pin, qobuz_pin_invoker, tidal_pin_invoker
+from ohpipeline_jax.av.services import (QobuzCatalogue, QobuzService,
                                         ServiceError, TidalCatalogue,
                                         TidalService, TokenRefreshLoop)
 
@@ -21,7 +21,7 @@ class RamStore:
         self._d = {}
 
     def read(self, k):
-        from ohpipeline_tpu.av.config import StoreKeyNotFound
+        from ohpipeline_jax.av.config import StoreKeyNotFound
         if k not in self._d:
             raise StoreKeyNotFound(k)
         return self._d[k]
@@ -77,7 +77,7 @@ def _tidal(api):
     svc = TidalService(RamStore(), "client-id", http=api.http,
                       http_post=lambda url, data, hdrs: {})
     # pre-seed a valid token so catalogue calls skip the OAuth flow
-    from ohpipeline_tpu.av.oauth import Token
+    from ohpipeline_jax.av.oauth import Token
     tok = Token("t1", refresh_token="r1")
     tok.access_token = "acc"
     tok.expires_at = 2e12
@@ -174,7 +174,7 @@ class FakePlaylistSource:
     system_name = "Playlist"
 
     def __init__(self):
-        from ohpipeline_tpu.av.sources import TrackDatabase
+        from ohpipeline_jax.av.sources import TrackDatabase
         self.db = TrackDatabase()
         self.provider = type("P", (), {"set_shuffle": lambda s, v: None})()
         self.activated = False

@@ -6,7 +6,7 @@ users actually call: decode_{flac,aac,mp3,he}_streams_device with
 must return the single-device results — bit-exactly for the integer
 FLAC path; within a few 16-bit LSB for the float32 paths, where XLA's
 sharded layouts reorder reductions (same stance as the dryrun's
-tolerance).  The 8-device CPU mesh comes from conftest's
+tolerance).  The CPU devices come from conftest's
 --xla_force_host_platform_device_count=8.
 """
 import os
@@ -16,7 +16,7 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import parallel
+from ohpipeline_jax import parallel
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ORACLE = os.path.join(REPO, ".oracle_build", "aac_oracle")
@@ -24,11 +24,27 @@ AAC_ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          "assets", "dryrun.aac")
 
 
-def _mesh():
+def _mesh(n=8):
     import jax
-    if len(jax.devices()) < 8:
-        pytest.skip("needs the 8-device CPU mesh")
-    return parallel.make_mesh(8)
+    if len(jax.devices()) < n:
+        pytest.skip(f"needs the {n}-device CPU mesh")
+    return parallel.make_mesh(n)
+
+
+@pytest.mark.parametrize("n", [4, 8])
+def test_make_mesh_shards_streams_over_every_device(n):
+    """All devices go on the stream axis: a serving plane of 16 rows per
+    device lands as one 16-row shard on each of the n devices."""
+    mesh = _mesh(n)
+    assert dict(mesh.shape) == {"dp": n}
+    rows = np.arange(16 * n * 3, dtype=np.int32).reshape(16 * n, 3)
+    placed = parallel.serving_put(mesh, rows, 0)
+    shards = placed.addressable_shards
+    assert len({sh.device for sh in shards}) == n
+    assert all(sh.data.shape == (16, 3) for sh in shards)
+    np.testing.assert_array_equal(np.asarray(placed), rows)
+    # a shared plane replicates
+    assert parallel.serving_put(mesh, rows[:5]).sharding.is_fully_replicated
 
 
 def _close(r, g, lsb=24, snr_db=70.0):
@@ -51,10 +67,11 @@ def _pcm(seed, secs=1.5, rate=44100):
     return np.stack([x, 0.6 * x]).astype(np.int32)
 
 
-def test_flac_streams_mesh_parity():
-    from ohpipeline_tpu.codecs import flac
-    from ohpipeline_tpu.codecs.flac import serving as FS
-    mesh = _mesh()
+@pytest.mark.parametrize("n", [4, 8])
+def test_flac_streams_mesh_parity(n):
+    from ohpipeline_jax.codecs import flac
+    from ohpipeline_jax.codecs.flac import serving as FS
+    mesh = _mesh(n)
     streams = [flac.encode_flac(_pcm(s), 44100, 16, blocksize=1024)
                for s in range(4)]
     ref = FS.decode_flac_streams_device(streams,
@@ -67,7 +84,7 @@ def test_flac_streams_mesh_parity():
 
 
 def _mp3_stream(seed: int, nframes: int) -> bytes:
-    from ohpipeline_tpu.codecs.mp3 import encoder as ENC
+    from ohpipeline_jax.codecs.mp3 import encoder as ENC
     rng = np.random.default_rng(seed)
     frames = []
     for _ in range(nframes):
@@ -82,7 +99,7 @@ def _mp3_stream(seed: int, nframes: int) -> bytes:
 
 
 def test_mp3_streams_mesh_parity():
-    from ohpipeline_tpu.codecs.mp3 import serving as MS
+    from ohpipeline_jax.codecs.mp3 import serving as MS
     mesh = _mesh()
     streams = [_mp3_stream(s, 12 + 7 * s) for s in range(4)]
     ref = MS.decode_mp3_streams_device(streams, frames_per_group=16)
@@ -93,13 +110,13 @@ def test_mp3_streams_mesh_parity():
 
 
 def test_aac_streams_mesh_parity():
-    from ohpipeline_tpu.codecs.aac import serving as AS
+    from ohpipeline_jax.codecs.aac import serving as AS
     mesh = _mesh()
     if not os.path.exists(AAC_ASSET):
         pytest.skip("no ADTS asset")
     data = open(AAC_ASSET, "rb").read()
     # distinct lengths per stream: cut at different frame boundaries
-    from ohpipeline_tpu.codecs.aac.bitstream import parse_adts_header
+    from ohpipeline_jax.codecs.aac.bitstream import parse_adts_header
     cuts, pos, k = [], 0, 0
     while pos < len(data):
         h = parse_adts_header(data, pos)
@@ -120,7 +137,7 @@ def test_aac_streams_mesh_parity():
 @pytest.mark.skipif(not os.path.exists(ORACLE),
                     reason="aac oracle not built")
 def test_he_streams_mesh_parity():
-    from ohpipeline_tpu.codecs.aac import serving as AS
+    from ohpipeline_jax.codecs.aac import serving as AS
     mesh = _mesh()
     streams = []
     for s in range(2):

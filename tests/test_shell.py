@@ -2,13 +2,13 @@
 
 import pytest
 
-from ohpipeline_tpu.net.shell import Shell, attach_media_player, run_command
+from ohpipeline_jax.net.shell import Shell, attach_media_player, run_command
 
 
 @pytest.fixture
 def media_player():
-    from ohpipeline_tpu.av import MediaPlayer, MediaPlayerInitParams
-    from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+    from ohpipeline_jax.av import MediaPlayer, MediaPlayerInitParams
+    from ohpipeline_jax.pipeline.manager import PipelineInitParams
     pp = PipelineInitParams()
     pp.gorge_jiffies = 0
     pp.threaded_starvation_ramper = False
@@ -62,8 +62,8 @@ def test_media_player_command_set(media_player):
 
 
 def test_media_player_opens_shell_via_init_params():
-    from ohpipeline_tpu.av import MediaPlayer, MediaPlayerInitParams
-    from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+    from ohpipeline_jax.av import MediaPlayer, MediaPlayerInitParams
+    from ohpipeline_jax.pipeline.manager import PipelineInitParams
     pp = PipelineInitParams()
     pp.gorge_jiffies = 0
     pp.threaded_starvation_ramper = False

@@ -8,9 +8,9 @@ import time
 
 import pytest
 
-from ohpipeline_tpu.av.config import ConfigManager
-from ohpipeline_tpu.av.receiver_sources import SourceReceiver, UriError
-from ohpipeline_tpu.av.sender import (STATUS_BLOCKED, STATUS_DISABLED,
+from ohpipeline_jax.av.config import ConfigManager
+from ohpipeline_jax.av.receiver_sources import SourceReceiver, UriError
+from ohpipeline_jax.av.sender import (STATUS_BLOCKED, STATUS_DISABLED,
                                       STATUS_ENABLED, STATUS_INACTIVE,
                                       STATUS_READY, STATUS_SENDING,
                                       SenderStatus, SongcastSender)
@@ -60,7 +60,7 @@ class TestSenderStatus:
         st.close()
 
     def test_audio_present_timeout_clears(self, monkeypatch):
-        monkeypatch.setattr("ohpipeline_tpu.av.sender.TIMEOUT_AUDIO_S",
+        monkeypatch.setattr("ohpipeline_jax.av.sender.TIMEOUT_AUDIO_S",
                             0.05)
         st = SenderStatus()
         st.set_status_enabled(True)
@@ -140,9 +140,9 @@ class TestSourceReceiverSetSender:
     (SourceReceiver.cpp:340-398)."""
 
     def make(self):
-        from ohpipeline_tpu.av.config import RamStore
-        from ohpipeline_tpu.pipeline import PipelineManager
-        from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+        from ohpipeline_jax.av.config import RamStore
+        from ohpipeline_jax.pipeline import PipelineManager
+        from ohpipeline_jax.pipeline.manager import PipelineInitParams
         p = PipelineInitParams()
         p.gorge_jiffies = 0
         p.threaded_starvation_ramper = False
@@ -185,8 +185,8 @@ class TestSourceReceiverSetSender:
             src.set_sender("ohm://10.0.0.1:51970", "m")
         finally:
             mgr.quit()
-        from ohpipeline_tpu.pipeline import PipelineManager
-        from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+        from ohpipeline_jax.pipeline import PipelineManager
+        from ohpipeline_jax.pipeline.manager import PipelineInitParams
         p = PipelineInitParams()
         p.gorge_jiffies = 0
         p.threaded_starvation_ramper = False
@@ -204,7 +204,7 @@ class TestZoneDiscoveryLoopback:
     ZoneUriChanged (ZoneHandler listener, SourceReceiver.cpp:405-418)."""
 
     def test_zone_query_answer_callback(self):
-        from ohpipeline_tpu.net.songcast import ZoneHandler
+        from ohpipeline_jax.net.songcast import ZoneHandler
         answering = ZoneHandler("kitchen", ohm_uri="ohm://127.0.0.1:5555",
                                 multicast=False)
         asking = ZoneHandler("", multicast=False)
@@ -226,8 +226,8 @@ class TestZoneDiscoveryLoopback:
 
 @pytest.fixture
 def media_player():
-    from ohpipeline_tpu.av import MediaPlayer, MediaPlayerInitParams
-    from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+    from ohpipeline_jax.av import MediaPlayer, MediaPlayerInitParams
+    from ohpipeline_jax.pipeline.manager import PipelineInitParams
     pp = PipelineInitParams()
     pp.gorge_jiffies = 0
     pp.threaded_starvation_ramper = False
@@ -241,8 +241,8 @@ def media_player():
 
 class TestOdpSongcastServices:
     def test_receiver_service_surface(self, media_player):
-        from ohpipeline_tpu.net.odp import OdpClient, OdpError, OdpServer
-        from ohpipeline_tpu.net.providers import make_device
+        from ohpipeline_jax.net.odp import OdpClient, OdpError, OdpServer
+        from ohpipeline_jax.net.providers import make_device
         server = OdpServer()
         server.add_device(make_device(media_player))
         client = OdpClient("127.0.0.1", server.port)
@@ -270,8 +270,8 @@ class TestOdpSongcastServices:
             server.close()
 
     def test_sender_service_surface(self, media_player):
-        from ohpipeline_tpu.net.odp import OdpClient, OdpServer
-        from ohpipeline_tpu.net.providers import make_device
+        from ohpipeline_jax.net.odp import OdpClient, OdpServer
+        from ohpipeline_jax.net.providers import make_device
         server = OdpServer()
         server.add_device(make_device(media_player))
         client = OdpClient("127.0.0.1", server.port)
@@ -297,10 +297,10 @@ class TestDriverSongcastSender:
 
     def test_pipeline_to_ohm_with_silence_fill(self):
         import numpy as np
-        from ohpipeline_tpu.net.songcast import OhmSender
-        from ohpipeline_tpu.pipeline import PipelineManager
-        from ohpipeline_tpu.pipeline.animator import AnimatorSongcastSender
-        from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+        from ohpipeline_jax.net.songcast import OhmSender
+        from ohpipeline_jax.pipeline import PipelineManager
+        from ohpipeline_jax.pipeline.animator import AnimatorSongcastSender
+        from ohpipeline_jax.pipeline.manager import PipelineInitParams
 
         p = PipelineInitParams()
         p.gorge_jiffies = 0

@@ -5,9 +5,9 @@ reloads, and DRM gating."""
 
 import pytest
 
-from ohpipeline_tpu.protocols import dash as D
-from ohpipeline_tpu.protocols import hls as H
-from ohpipeline_tpu.protocols.base import ProtocolStreamResult
+from ohpipeline_jax.protocols import dash as D
+from ohpipeline_jax.protocols import hls as H
+from ohpipeline_jax.protocols.base import ProtocolStreamResult
 
 
 class Supply:

@@ -11,11 +11,11 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.av.config import ConfigManager
-from ohpipeline_tpu.av.volume import VolumeManager, VolumeProfile
-from ohpipeline_tpu.net import upnp
-from ohpipeline_tpu.pipeline import AnimatorBatch, PipelineManager
-from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+from ohpipeline_jax.av.config import ConfigManager
+from ohpipeline_jax.av.volume import VolumeManager, VolumeProfile
+from ohpipeline_jax.net import upnp
+from ohpipeline_jax.pipeline import AnimatorBatch, PipelineManager
+from ohpipeline_jax.pipeline.manager import PipelineInitParams
 
 
 class NotifySink:

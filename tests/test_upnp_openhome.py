@@ -12,13 +12,13 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import pytest
 
-from ohpipeline_tpu.net import upnp
+from ohpipeline_jax.net import upnp
 
 
 @pytest.fixture
 def player_device():
-    from ohpipeline_tpu.av import MediaPlayer, MediaPlayerInitParams
-    from ohpipeline_tpu.pipeline.manager import PipelineInitParams
+    from ohpipeline_jax.av import MediaPlayer, MediaPlayerInitParams
+    from ohpipeline_jax.pipeline.manager import PipelineInitParams
     pp = PipelineInitParams()
     pp.gorge_jiffies = 0
     pp.threaded_starvation_ramper = False

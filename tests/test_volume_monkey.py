@@ -20,8 +20,8 @@ exact model of the reference semantics:
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.av.config import ConfigManager
-from ohpipeline_tpu.av.volume import (VolumeManager, VolumeNotSupported,
+from ohpipeline_jax.av.config import ConfigManager
+from ohpipeline_jax.av.volume import (VolumeManager, VolumeNotSupported,
                                       VolumeOutOfRange, VolumeProfile)
 
 MAX = 100
@@ -259,9 +259,9 @@ def test_odp_volume_full_surface():
     with the JSON-evented collections and error codes 812/816/817/819."""
     import json as _json
 
-    from ohpipeline_tpu.av.media_player import MediaPlayer
-    from ohpipeline_tpu.net.odp import OdpClient, OdpError, OdpServer
-    from ohpipeline_tpu.net.providers import make_device
+    from ohpipeline_jax.av.media_player import MediaPlayer
+    from ohpipeline_jax.net.odp import OdpClient, OdpError, OdpServer
+    from ohpipeline_jax.net.providers import make_device
 
     mp = MediaPlayer()
     server = OdpServer()
@@ -342,14 +342,14 @@ def test_odp_volume_full_surface():
 def test_odp_volume_offsets_not_supported():
     """A device without offsetter/trims answers 815/818
     (ProviderVolume.cpp:444-452,491-496)."""
-    from ohpipeline_tpu.av.config import ConfigManager as CM
-    from ohpipeline_tpu.av.volume import VolumeManager as VM
+    from ohpipeline_jax.av.config import ConfigManager as CM
+    from ohpipeline_jax.av.volume import VolumeManager as VM
 
     class _Mp:
         pass
 
-    from ohpipeline_tpu.net.odp import OdpError
-    from ohpipeline_tpu.net.providers import make_volume_service
+    from ohpipeline_jax.net.odp import OdpError
+    from ohpipeline_jax.net.providers import make_volume_service
     mp = _Mp()
     mp.volumes = VM(CM(), VolumeProfile())
     svc = make_volume_service(mp)
@@ -374,9 +374,9 @@ def test_odp_time_and_credentials_services():
     from cryptography.hazmat.primitives import serialization
     from cryptography.hazmat.primitives.asymmetric import padding
 
-    from ohpipeline_tpu.av.media_player import MediaPlayer
-    from ohpipeline_tpu.net.odp import OdpClient, OdpError, OdpServer
-    from ohpipeline_tpu.net.providers import make_device
+    from ohpipeline_jax.av.media_player import MediaPlayer
+    from ohpipeline_jax.net.odp import OdpClient, OdpError, OdpServer
+    from ohpipeline_jax.net.providers import make_device
 
     mp = MediaPlayer()
     server = OdpServer()
@@ -441,9 +441,9 @@ def test_odp_volume_error_codes(media_player=None):
     in-range request the limiter pins is swallowed (success, volume
     unchanged); only a request beyond VolumeMax while pinned at max
     surfaces 811; unity-gain mode surfaces 814 for any SetVolume."""
-    from ohpipeline_tpu.av.media_player import MediaPlayer
-    from ohpipeline_tpu.net.odp import OdpClient, OdpError, OdpServer
-    from ohpipeline_tpu.net.providers import make_device
+    from ohpipeline_jax.av.media_player import MediaPlayer
+    from ohpipeline_jax.net.odp import OdpClient, OdpError, OdpServer
+    from ohpipeline_jax.net.providers import make_device
 
     mp = MediaPlayer()
     server = OdpServer()

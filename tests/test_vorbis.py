@@ -7,11 +7,11 @@ import subprocess
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs.vorbis import CodecVorbis, decode_vorbis
-from ohpipeline_tpu.codecs.vorbis.bitreader import (LsbBitReader,
+from ohpipeline_jax.codecs.vorbis import CodecVorbis, decode_vorbis
+from ohpipeline_jax.codecs.vorbis.bitreader import (LsbBitReader,
                                                     float32_unpack, ilog,
                                                     lookup1_values)
-from ohpipeline_tpu.codecs.vorbis.codebook import assign_codewords
+from ohpipeline_jax.codecs.vorbis.codebook import assign_codewords
 
 ORACLE = pathlib.Path(__file__).resolve().parent.parent / \
     ".oracle_build" / "vorbis_oracle"
@@ -54,7 +54,7 @@ class TestCraftedStreams:
     does not: window transitions, stereo, square-polar coupling."""
 
     def _check(self, ch, pattern, tmp, coupling=False):
-        from ohpipeline_tpu.codecs.vorbis.encoder import StreamSpec
+        from ohpipeline_jax.codecs.vorbis.encoder import StreamSpec
         rng = np.random.default_rng(7)
         spec = StreamSpec(channels=ch, sample_rate=44100, bs0=256,
                           bs1=1024, coupling=coupling)
@@ -95,7 +95,7 @@ class TestCraftedStreams:
 @pytest.mark.skipif(not REAL_OGG.exists(), reason="no real-world vector")
 class TestSeek:
     def test_coarse_seek_resumes(self):
-        from ohpipeline_tpu.codecs import BufferReader
+        from ohpipeline_jax.codecs import BufferReader
         raw = REAL_OGG.read_bytes()
         codec = CodecVorbis()
         r = BufferReader(raw)
@@ -143,7 +143,7 @@ class TestRealFile:
         assert d.max() <= 1, f"max diff {d.max()}"
 
     def test_registry_pipeline_decode(self):
-        from ohpipeline_tpu.codecs import default_registry
+        from ohpipeline_jax.codecs import default_registry
         raw = REAL_OGG.read_bytes()
         codec = default_registry.recognise(raw[:4096])
         assert codec is not None and codec.name == "Vorbis"

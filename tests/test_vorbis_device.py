@@ -3,14 +3,14 @@
 The host synthesis (synthesis.imdct_many + Lapper, float64) is the
 conformance oracle — itself validated 1 LSB against the Tremor oracle
 in test_vorbis.py — so device-vs-host here bounds the whole device
-path: int16-spectrum wire, f32 MXU matmuls, scatter overlap-add and
+path: int16-spectrum wire, f32 matmuls, scatter overlap-add and
 the group-to-group lap carry."""
 
 import numpy as np
 
-from ohpipeline_tpu.codecs.vorbis import vorbis_jax
-from ohpipeline_tpu.codecs.vorbis.encoder import StreamSpec
-from ohpipeline_tpu.codecs.vorbis.synthesis import Lapper, imdct_many
+from ohpipeline_jax.codecs.vorbis import vorbis_jax
+from ohpipeline_jax.codecs.vorbis.encoder import StreamSpec
+from ohpipeline_jax.codecs.vorbis.synthesis import Lapper, imdct_many
 
 
 def _make_stream(seed, nblocks=40, coupling=True, mode="mixed", ch=2):

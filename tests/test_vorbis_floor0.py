@@ -8,8 +8,8 @@ import subprocess
 import numpy as np
 import pytest
 
-from ohpipeline_tpu.codecs.vorbis import decode_vorbis
-from ohpipeline_tpu.codecs.vorbis.encoder import StreamSpecFloor0
+from ohpipeline_jax.codecs.vorbis import decode_vorbis
+from ohpipeline_jax.codecs.vorbis.encoder import StreamSpecFloor0
 
 ORACLE = pathlib.Path(__file__).resolve().parent.parent / \
     ".oracle_build" / "vorbis_oracle"

@@ -9,8 +9,8 @@ import urllib.request
 
 import pytest
 
-from ohpipeline_tpu.av.config import ConfigManager
-from ohpipeline_tpu.net.webapp import ConfigApp, Tab, WebApp, WebAppFramework
+from ohpipeline_jax.av.config import ConfigManager
+from ohpipeline_jax.net.webapp import ConfigApp, Tab, WebApp, WebAppFramework
 
 
 def get(url):
@@ -130,7 +130,7 @@ class TestStaticResources:
     def test_file_resources_mime_etag_304(self, framework, tmp_path):
         """File-backed resource serving (reference FileResourceHandler):
         extension MIME mapping, ETag issued, If-None-Match -> 304."""
-        from ohpipeline_tpu.net.webapp import (FileResourceManager,
+        from ohpipeline_jax.net.webapp import (FileResourceManager,
                                                WebApp)
         (tmp_path / "app.css").write_text("body{}")
         (tmp_path / "logo.svg").write_text("<svg/>")
@@ -163,7 +163,7 @@ class TestStaticResources:
     def test_language_directories(self, framework, tmp_path):
         """Per-language resource dirs chosen from Accept-Language
         (reference languageResourceDir handling)."""
-        from ohpipeline_tpu.net.webapp import (FileResourceManager,
+        from ohpipeline_jax.net.webapp import (FileResourceManager,
                                                WebApp)
         (tmp_path / "greet.txt").write_text("hello")
         (tmp_path / "fr").mkdir()
@@ -185,7 +185,7 @@ class TestStaticResources:
         assert body == b"hello"
 
     def test_traversal_rejected(self, framework, tmp_path):
-        from ohpipeline_tpu.net.webapp import FileResourceManager
+        from ohpipeline_jax.net.webapp import FileResourceManager
         (tmp_path / "safe.txt").write_text("ok")
         mgr = FileResourceManager(str(tmp_path))
         assert mgr.lookup("safe.txt") is not None
@@ -255,7 +255,7 @@ class TestSessionEviction:
         """At the session cap, lpcreate recycles the longest-idle tab
         instead of failing, but refuses when every tab is active
         (reference TabManager + TabAllocatorFull semantics)."""
-        import ohpipeline_tpu.net.webapp as W
+        import ohpipeline_jax.net.webapp as W
         framework.add_app(EchoApp())
         port = framework.port
         sids = []

@@ -9,11 +9,11 @@ import tempfile
 import numpy as np
 import pytest
 
-from ohpipeline_tpu import native
-from ohpipeline_tpu.codecs import aac, flac
-from ohpipeline_tpu.codecs.aac import synthesis as ASYN
-from ohpipeline_tpu.codecs.flac import frames as FF
-from ohpipeline_tpu.codecs.flac import _synthesise_group, _synthesise_group12
+from ohpipeline_jax import native
+from ohpipeline_jax.codecs import aac, flac
+from ohpipeline_jax.codecs.aac import synthesis as ASYN
+from ohpipeline_jax.codecs.flac import frames as FF
+from ohpipeline_jax.codecs.flac import _synthesise_group, _synthesise_group12
 
 import jax.numpy as jnp
 
@@ -83,7 +83,7 @@ def test_flac_pack12_roundtrip():
 
 
 def test_flac_zz_matches_pack12():
-    from ohpipeline_tpu.codecs.flac import _synthesise_group_zz
+    from ohpipeline_jax.codecs.flac import _synthesise_group_zz
     track = _noisy_track()
     data = flac.encode_flac(track, 44100, 16)
     m = FF.parse_metadata(data)

@@ -112,7 +112,7 @@ static int do_decode(const char *in, const char *out, int tt)
     /* force the high-quality (complex-QMF) SBR chain for every channel
      * configuration: fdk silently falls back to the low-power real-QMF
      * chain for stereo (CAacDecoder_SyncQmfMode, aacdecoder.cpp:169-179)
-     * which is a different, lower-fidelity algorithm; the TPU build
+     * which is a different, lower-fidelity algorithm; this framework
      * implements the HQ chain everywhere, so the oracle must too */
     aacDecoder_SetParam(dec, AAC_QMF_LOWPOWER, 0);
     static INT_PCM pcm[8 * 2048];

@@ -1,5 +1,5 @@
 #!/bin/bash
-# One-command CI gate for ohpipeline_tpu.
+# One-command CI gate for ohpipeline_jax.
 #
 # Mirrors the reference's oncommit manifest discipline (the reference
 # runs ~60 suites under valgrind per commit via one orchestrated list:
@@ -14,13 +14,12 @@
 #        — the analogue of the reference's valgrind runs)
 #     3. 8-device CPU-mesh multichip dryrun (__graft_entry__.dryrun_multichip)
 #     4. bench.py --smoke (device decode parity + metric line)
-#   nightly (run manually / by the round driver):
-#     python bench.py            (full headline bench, real TPU)
-#     python bench.py --secondary (per-codec serving sweep, real TPU)
+#   on a GPU (run manually):
+#     python chip_smoke.py       (the served path at real size, one card)
+#     python chip_smoke.py --multichip (the mesh path, four cards)
 #
-# Writes one machine-readable verdict to CI_GATE.json (checked in per
-# run is NOT intended — it is a local artifact; the driver's BENCH_*
-# files are the recorded evidence).  Exit 0 iff every stage passed.
+# Writes one machine-readable verdict to CI_GATE.json, a local artifact
+# (gitignored).  Exit 0 iff every stage passed.
 set -u
 cd "$(dirname "$0")/.."
 export JAX_PLATFORMS=cpu
@@ -68,7 +67,8 @@ import json, sys, time
 stages = {$(for k in "${!STAGE[@]}"; do printf '"%s": "%s",' "$k" "${STAGE[$k]}"; done)}
 ok = all(v == "pass" or v.startswith("skip") for v in stages.values())
 json.dump({"gate": "oncommit", "ok": ok, "stages": stages,
-           "nightly": ["python bench.py", "python bench.py --secondary"]},
+           "gpu": ["python chip_smoke.py",
+                   "python chip_smoke.py --multichip"]},
           open(sys.argv[1], "w"), indent=1)
 print(json.dumps({"ci_gate_ok": ok, "stages": stages}))
 EOF

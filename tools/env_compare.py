@@ -61,8 +61,8 @@ def parse(path):
 
 
 def tap_ours(data):
-    import ohpipeline_tpu.codecs.aac as AAC
-    from ohpipeline_tpu.codecs.aac import sbr as SBR
+    import ohpipeline_jax.codecs.aac as AAC
+    from ohpipeline_jax.codecs.aac import sbr as SBR
     from test_sbr import _decode_he
     sink = []
     SBR.ENV_SINK = sink

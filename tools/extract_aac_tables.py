@@ -7,7 +7,7 @@ decoder.  They are decoded out of the vendored reference decoder's
 2-bit-parallel walk tables (/root/reference/thirdparty/fdk-aac,
 libAACdec/src/aac_rom.cpp) back into canonical (codeword, length, values)
 form — pure standard data, free of the source's structure.  Output:
-ohpipeline_tpu/codecs/aac/tables.npz.
+ohpipeline_jax/codecs/aac/tables.npz.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import numpy as np
 ROM = pathlib.Path("/root/reference/thirdparty/fdk-aac/libAACdec/src/"
                    "aac_rom.cpp")
 OUT = pathlib.Path(__file__).resolve().parent.parent / \
-    "ohpipeline_tpu" / "codecs" / "aac" / "tables.npz"
+    "ohpipeline_jax" / "codecs" / "aac" / "tables.npz"
 
 # (dimension, bits-per-dimension, unsigned-offset) per codebook id —
 # ISO 14496-3 Table 4.A.2ff structure

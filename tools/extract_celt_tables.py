@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Extract the CELT 48 kHz mode tables (band layout, allocation matrix,
 PVQ bit cache, window) from the reference's vendored opus via the
-celt_probe oracle, into ohpipeline_tpu/codecs/opus/celt_mode.npz.
+celt_probe oracle, into ohpipeline_jax/codecs/opus/celt_mode.npz.
 
 These are wire-format constants of RFC 6716 (the normative decoder); the
 decoder logic itself is implemented from the spec in codecs/opus/."""
@@ -41,7 +41,7 @@ def main():
         cache_bits=np.asarray(m["cache_bits"], np.uint8),
         cache_caps=np.asarray(m["cache_caps"], np.uint8),
     )
-    dest = ROOT / "ohpipeline_tpu" / "codecs" / "opus" / "celt_mode.npz"
+    dest = ROOT / "ohpipeline_jax" / "codecs" / "opus" / "celt_mode.npz"
     dest.parent.mkdir(exist_ok=True)
     np.savez_compressed(dest, **out)
     print(f"wrote {dest} ({dest.stat().st_size} bytes)")

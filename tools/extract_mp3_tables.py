@@ -8,7 +8,7 @@ this script *decodes* them out of the vendored reference decoder's
 multi-level lookup structures (/root/reference/thirdparty/libmad-0.15.1b)
 back into canonical (codeword, length, values) form, which is pure
 standard data independent of any implementation.  Output:
-ohpipeline_tpu/codecs/mp3/tables.npz.
+ohpipeline_jax/codecs/mp3/tables.npz.
 
 Run: python tools/extract_mp3_tables.py  (requires the reference mount)
 """
@@ -23,7 +23,7 @@ import numpy as np
 
 REF = pathlib.Path("/root/reference/thirdparty/libmad-0.15.1b")
 OUT = pathlib.Path(__file__).resolve().parent.parent / \
-    "ohpipeline_tpu" / "codecs" / "mp3" / "tables.npz"
+    "ohpipeline_jax" / "codecs" / "mp3" / "tables.npz"
 
 # spec constants (ISO 11172-3 Table B.7): linbits per table id and the
 # start-bits of each lookup table as registered in the decoder

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Extract SBR decoder constants into ohpipeline_tpu/codecs/aac/sbr_tables.npz.
+"""Extract SBR decoder constants into ohpipeline_jax/codecs/aac/sbr_tables.npz.
 
 Two sources, both category-(b) spec/wire constants (like the other codec
 table extractions in this repo):
@@ -9,7 +9,7 @@ table extractions in this repo):
   * QMF analysis/synthesis kernels: measured as impulse responses of
     fdk's own filterbank via tools/sbr_probe.cpp — the filterbank is
     linear and shift-invariant, so the (bands x taps) complex kernels are
-    exactly the matmul operators the TPU decoder uses
+    exactly the matmul operators the device decoder uses
 
 Run from the repo root after `tools/build_oracles.sh aac` and building
 sbr_probe (see build_oracles.sh).
@@ -184,7 +184,7 @@ def main() -> int:
     tables["random_phase"] = parse_random(text)
     tables["ana32"] = probe_ana(32)
     tables["syn64"] = probe_syn(64)
-    out = ROOT / "ohpipeline_tpu" / "codecs" / "aac" / "sbr_tables.npz"
+    out = ROOT / "ohpipeline_jax" / "codecs" / "aac" / "sbr_tables.npz"
     np.savez_compressed(out, **tables)
     print(f"wrote {out} ({out.stat().st_size} bytes)")
     return 0

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Extract the SILK decoder's constant tables into
-ohpipeline_tpu/codecs/opus/silk_tables.npz.
+ohpipeline_jax/codecs/opus/silk_tables.npz.
 
 The tables (iCDFs, NLSF codebooks, LTP filters, pitch-lag contours,
 pulse-count distributions) are normative RFC 6716 section-4.2 constants;
@@ -17,7 +17,7 @@ import numpy as np
 
 SRC = pathlib.Path("/root/reference/thirdparty/opus-1.5.2/silk")
 OUT = (pathlib.Path(__file__).resolve().parent.parent
-       / "ohpipeline_tpu" / "codecs" / "opus" / "silk_tables.npz")
+       / "ohpipeline_jax" / "codecs" / "opus" / "silk_tables.npz")
 
 FILES = [
     "tables_gain.c", "tables_LTP.c", "tables_NLSF_CB_NB_MB.c",

@@ -13,7 +13,7 @@ import re
 import numpy as np
 
 REF = pathlib.Path("/root/reference/thirdparty/Tremor")
-OUT = (pathlib.Path(__file__).resolve().parent.parent / "ohpipeline_tpu"
+OUT = (pathlib.Path(__file__).resolve().parent.parent / "ohpipeline_jax"
        / "codecs" / "vorbis" / "tables.npz")
 
 

@@ -1,7 +1,7 @@
 /* Test oracle CLI over the reference's vendored flac-1.2.1 (libFLAC).
  *
  * Built by tools/build_oracles.sh into .oracle_build/ (gitignored); used by
- * the conformance suite to prove ohpipeline_tpu's FLAC path is bit-exact
+ * the conformance suite to prove ohpipeline_jax's FLAC path is bit-exact
  * against the exact decoder the reference product ships
  * (/root/reference/thirdparty/flac-1.2.1, used by
  * OpenHome/Media/Codec/Flac.cpp).  This file is ours; the library is

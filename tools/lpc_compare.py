@@ -91,8 +91,8 @@ def float_alphas(z):
 def ours_vs_fdk(calls, data):
     """Decode the same ADTS stream with the host decoder, tap its
     transposer alphas, align to the fdk dump and report divergence."""
-    import ohpipeline_tpu.codecs.aac as AAC
-    from ohpipeline_tpu.codecs.aac import sbr as SBR
+    import ohpipeline_jax.codecs.aac as AAC
+    from ohpipeline_jax.codecs.aac import sbr as SBR
     from test_sbr import _decode_he
     sink = []
     SBR.ALPHA_SINK = sink
@@ -132,7 +132,7 @@ def ours_vs_fdk(calls, data):
     # decisive experiment: project OUR float z onto fdk's int32 lattice
     # (per-pair fitted scale) and run the fixed-point emulation on it —
     # if those alphas track fdk's, the transcription closes the gap
-    from ohpipeline_tpu.codecs.aac.sbr_fixlpc import fix_alphas
+    from ohpipeline_jax.codecs.aac.sbr_fixlpc import fix_alphas
     nout = 0
     rel, fx_err = [], []
     for i, (ch, al, zs) in enumerate(sink):
@@ -182,7 +182,7 @@ def ours_vs_fdk(calls, data):
 
 def main():
     kind = sys.argv[1] if len(sys.argv) > 1 else "noise"
-    from ohpipeline_tpu.codecs.aac.sbr_fixlpc import fix_alphas
+    from ohpipeline_jax.codecs.aac.sbr_fixlpc import fix_alphas
     calls, data = run_dump(kind)
     n = exact = 0
     fl_err, fx_err = [], []

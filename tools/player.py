@@ -30,7 +30,7 @@ import numpy as np   # noqa: E402
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--room", default="Main Room")
-    ap.add_argument("--name", default="ohpipeline-tpu")
+    ap.add_argument("--name", default="ohpipeline-jax")
     ap.add_argument("--uri", default="")
     ap.add_argument("--wav", default="", help="write output to a WAV file")
     ap.add_argument("--realtime", action="store_true",
@@ -47,13 +47,13 @@ def main() -> int:
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from ohpipeline_tpu.av import MediaPlayer, MediaPlayerInitParams
-    from ohpipeline_tpu.av.pins import (PinsManager, TransportPinInvoker,
+    from ohpipeline_jax.av import MediaPlayer, MediaPlayerInitParams
+    from ohpipeline_jax.av.pins import (PinsManager, TransportPinInvoker,
                                         UrlPinInvoker)
-    from ohpipeline_tpu.net.odp import OdpServer
-    from ohpipeline_tpu.net.providers import make_device
-    from ohpipeline_tpu.net.webapp import ConfigApp, WebAppFramework
-    from ohpipeline_tpu.pipeline import AnimatorBasic, AnimatorBatch
+    from ohpipeline_jax.net.odp import OdpServer
+    from ohpipeline_jax.net.providers import make_device
+    from ohpipeline_jax.net.webapp import ConfigApp, WebAppFramework
+    from ohpipeline_jax.pipeline import AnimatorBasic, AnimatorBatch
 
     mp = MediaPlayer(MediaPlayerInitParams(room=args.room, name=args.name,
                                            store_path=args.store or None))
@@ -67,7 +67,7 @@ def main() -> int:
     web = WebAppFramework(port=args.web_port)
     web.add_app(ConfigApp(mp.config))
     web.start()
-    from ohpipeline_tpu.net.mdns import MdnsResponder, announce_media_player
+    from ohpipeline_jax.net.mdns import MdnsResponder, announce_media_player
     mdns = MdnsResponder()
     announce_media_player(mdns, f"{args.room}:{args.name}",
                           odp_port=odp.port, web_port=web.port)
@@ -106,7 +106,7 @@ def main() -> int:
     if not args.realtime and not args.shell:
         pass
     if args.wav and wav_chunks:
-        from ohpipeline_tpu.codecs.wav import write_wav
+        from ohpipeline_jax.codecs.wav import write_wav
         pcm = np.concatenate(wav_chunks, axis=1)
         with open(args.wav, "wb") as f:
             f.write(write_wav(pcm, 44100, 16))

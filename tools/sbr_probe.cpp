@@ -2,7 +2,7 @@
  *
  * The SBR decoder's QMF analysis/synthesis banks are linear and
  * 64-sample shift-invariant, so feeding unit impulses through fdk's own
- * implementation recovers the exact (modulated) kernels the TPU build's
+ * implementation recovers the exact (modulated) kernels the framework's
  * matmul formulation needs — no hand-transcription of the rearranged
  * fixed-point prototype tables.  Reference for behaviour:
  * fdk-aac/libFDK/src/qmf.cpp, used by libSBRdec (the decoder the
